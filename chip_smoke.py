@@ -6,22 +6,38 @@
 Phases, each printing one JSON line to stdout:
   1. device   the card's name; nvidia-smi's "name, power.limit" line.
   2. build    nvcc builds every kernel from socp_tpu_torch/csrc/ (seconds).
-  3. kernels  each CUDA kernel against its plain PyTorch version on the card,
-              on f64 SPD batches (kappa = 1e8) made from a numpy seed, at the
-              main path's shapes and two others; a matrix that is not
-              positive definite must give a non-finite factor.  Kernel, plain
-              and library (torch.linalg.cholesky_ex / torch.cholesky_solve,
-              never used by the port) are timed with CUDA events.
-  4. main     BASELINE config 3: 4096 robust least-squares SOCPs (n = 100,
+  3. kernels  each batched CUDA kernel against its plain PyTorch version on
+              the card, on f64 SPD batches (kappa = 1e8) made from a numpy
+              seed, at the main path's shapes and two others; a matrix that
+              is not positive definite must give a non-finite factor.
+              Kernel, plain and library (torch.linalg.cholesky_ex /
+              torch.cholesky_solve, never used by the port) are timed with
+              CUDA events.
+  4. single_kernels  the same for the single-instance kernels at n = 1 ...
+              768 (both regimes of the Cholesky kernel) and k = 1, 3, 5
+              (every (n, k) that configs 1 and 2 give them), timed at
+              n = 50 and n = 500 (configs 1 and 2); at n = 50 also the
+              batched Cholesky kernel on a batch of one.
+  5. main     BASELINE config 3: 4096 robust least-squares SOCPs (n = 100,
               nv = 102, m_pad = 312) in one lockstep batch through
               prepare_batch on "cuda"; every instance OPTIMAL at the 1e-8
               tolerances, pcost equal to the closed-form objective, the
               kernels' launch counts in the IPM loop's ratios, and 8 instances
               re-solved on the CPU (plain path) agreeing with the card.
-  5. profile  device time of one more main-path solve by kernel and
+  6. profile  device time of one more main-path solve by kernel and
               category, from torch.profiler, and the device's idle share:
               1 - busy / wall of the main phase's unprofiled solve.
-Then a {"kernels": [...]} line and, last, the {"ok": true, ...} line.
+  7. single   BASELINE configs 1 (random_socp, n = 50) and 2 (portfolio,
+              n = 500) through socp_tpu_torch.solve on "cuda": OPTIMAL at the
+              1e-8 tolerances, the models' own checks, launches only of the
+              single-instance kernels in the IPM loop's ratios, the CPU
+              (plain path) re-solve agreeing; config 2 again with one Gondzio
+              corrector; then a profile of config 2 as in phase 6.
+Then a {"kernels": [...]} line (the batched kernels at config 3's shapes,
+with their launches in phase 5; the single-instance ones at n = 500, k = 1
+with n = 50 beside, with their launches in phase 7's default run of
+config 2 and, per config, of configs 1 and 2) and, last, the
+{"ok": true, ...} line.
 Any failed check exits non-zero before the last line is printed.  It needs
 CUDA and the repository: without either it exits non-zero.
 """
@@ -42,8 +58,14 @@ B_MAIN, N_MAIN = 4096, 100          # config 3: robust_ls_batch(0, 4096, n=100)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP64_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP64 tensor core (the
                                     # card's fastest FP64 rate: a lower bound)
-CHOL_RTOL, CHOL_ATOL = 1e-9, 1e-11  # tests/test_pallas.py:90-107
-TRI_RTOL, TRI_ATOL = 1e-10, 1e-12   # tests/test_pallas.py:110-129
+CHOL_RTOL, CHOL_ATOL = 1e-9, 1e-11  # tests/test_pallas.py:38-53, 90-107
+TRI_RTOL, TRI_ATOL = 1e-10, 1e-12   # tests/test_pallas.py:71-87, 110-129
+SINGLE_NS = (1, 5, 50, 333, 500, 768)   # up to the reference's _PALLAS_MAX_N
+SINGLE_KS = (1, 3, 5)                   # 5: config 1's p, the k of H^-1 A'
+COUNTERS = {"chol_batched": "chol_launches",
+            "tri_pair_batched": "tri_pair_launches",
+            "chol_single": "chol_single_launches",
+            "tri_pair_single": "tri_pair_single_launches"}
 
 
 def emit(obj):
@@ -96,6 +118,19 @@ def bound(bytes_, flops):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
     t_ops = flops / FP64_FLOPS_PER_S * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def reset_counts():
+    from socp_tpu_torch.ops import chol
+
+    for attr in COUNTERS.values():
+        setattr(chol, attr, 0)
+
+
+def read_counts():
+    from socp_tpu_torch.ops import chol
+
+    return {name: getattr(chol, attr) for name, attr in COUNTERS.items()}
 
 
 def phase_device():
@@ -183,10 +218,75 @@ def phase_kernels():
     return results, timing
 
 
+def phase_single_kernels():
+    """The single-instance kernels against their plain versions at n = 1 ...
+    768 and k = 1, 3, 5, the non-PD check, and timings at configs 1 and 2's
+    shapes.  Configs 1 and 2 give the Cholesky n = 50, 5 and 500, 1, and the
+    pair solve (n, k) = (50, 5), (50, 1), (5, 1), (500, 1) and (1, 1)."""
+    from socp_tpu_torch.ops import chol
+
+    rng = np.random.default_rng(SEED + 1)
+    dev = torch.device("cuda")
+    results = {"chol_single": [], "tri_pair_single": []}
+    for n in SINGLE_NS:
+        H = torch.as_tensor(spd_batch(rng, 1, n)[0], device=dev)
+        L = chol.chol_single(H)
+        Lp = chol.chol_single_plain(H)
+        torch.cuda.synchronize()
+        ok, err = close(L, Lp, CHOL_RTOL, CHOL_ATOL)
+        check(ok, f"chol_single vs plain at n={n}: max err {err}")
+        results["chol_single"].append(err)
+        for k in SINGLE_KS:
+            rhs = torch.as_tensor(rng.standard_normal((n, k)), device=dev)
+            X = chol.tri_pair_single(L, rhs)
+            Xp = chol.tri_pair_single_plain(L, rhs)
+            torch.cuda.synchronize()
+            ok, err = close(X, Xp, TRI_RTOL, TRI_ATOL)
+            check(ok, f"tri_pair_single vs plain at n={n} k={k}: max err {err}")
+            results["tri_pair_single"].append(err)
+
+    for n in (50, 500):                      # both regimes of the factor
+        bad = torch.as_tensor(spd_batch(rng, 1, n, neg=True)[0], device=dev)
+        for f in (chol.chol_single, chol.chol_single_plain):
+            Lb = f(bad)
+            torch.cuda.synchronize()
+            check(not bool(torch.isfinite(Lb).all()),
+                  f"{f.__name__}: a non-PD input at n={n} gave a finite factor")
+
+    timing = {"chol_single": {}, "tri_pair_single": {}}
+    for n in (50, 500):                      # configs 1 and 2: H is n x n
+        H = torch.as_tensor(spd_batch(rng, 1, n)[0], device=dev)
+        L = chol.chol_single(H)
+        rhs = torch.as_tensor(rng.standard_normal((n, 1)), device=dev)
+        tri = 8 * n * (n + 1) // 2           # least bytes, as phase_kernels
+        timing["chol_single"][n] = dict(
+            ms=cuda_ms(lambda: chol.chol_single(H)),
+            plain_ms=cuda_ms(lambda: chol.chol_single_plain(H), reps=5, warm=1),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H)),
+            bound=bound(tri + 8 * n * n, chol_flops(n)),
+        )
+        if n <= 169:
+            # the one-block regime beside the batched kernel at B = 1, which
+            # runs the same column loop with 256 threads instead of 512
+            timing["chol_single"][n]["batched_kernel_b1_ms"] = cuda_ms(
+                lambda: chol.chol_batched(H[None]))
+        timing["tri_pair_single"][n] = dict(
+            ms=cuda_ms(lambda: chol.tri_pair_single(L, rhs)),
+            plain_ms=cuda_ms(lambda: chol.tri_pair_single_plain(L, rhs),
+                             reps=5, warm=1),
+            library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs, L)),
+            bound=bound(tri + 2 * 8 * n, 2 * n * n),
+        )
+    emit({"phase": "single_kernels", "ns": list(SINGLE_NS), "ks": list(SINGLE_KS),
+          "max_abs_err": {k: max(v) for k, v in results.items()},
+          "timing": {name: {f"n={n}": t for n, t in by_n.items()}
+                     for name, by_n in timing.items()}})
+    return results, timing
+
+
 def phase_main():
     from socp_tpu_torch import Status, prepare_batch, solve_batch_raw
     from socp_tpu_torch.models.robust_ls import robust_ls_batch
-    from socp_tpu_torch.ops import chol
 
     t0 = time.perf_counter()
     c, G, h, dims = robust_ls_batch(SEED, batch=B_MAIN, n=N_MAIN)
@@ -201,15 +301,15 @@ def phase_main():
     warm_s = time.perf_counter() - t0
 
     torch.cuda.reset_peak_memory_stats()
-    chol.chol_launches = 0
-    chol.tri_pair_launches = 0
+    reset_counts()
     t0 = time.perf_counter()
     out = fn(*args)
     status = out[4].cpu().numpy()                    # syncs on the result
     solve_s = time.perf_counter() - t0
-    launches = {"chol_batched": chol.chol_launches,
-                "tri_pair_batched": chol.tri_pair_launches}
+    launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    check(launches["chol_single"] == launches["tri_pair_single"] == 0,
+          f"the batched path launched single-instance kernels: {launches}")
 
     x = out[0].cpu().numpy()
     k = out[5].cpu().numpy()
@@ -264,6 +364,8 @@ def _category(name):
     low = name.lower()
     for key, cat in (("chol_batched_kernel", "chol_batched"),
                      ("tri_pair_batched_kernel", "tri_pair_batched"),
+                     ("chol_single_", "chol_single"),
+                     ("tri_pair_single_kernel", "tri_pair_single"),
                      ("gemm", "cublas"), ("gemv", "cublas"), ("cutlass", "cublas"),
                      ("reduce", "reductions"), ("cat", "cat"),
                      ("elementwise", "elementwise"), ("copy", "copies")):
@@ -272,19 +374,20 @@ def _category(name):
     return "other"
 
 
-def phase_profile(fn, args, solve_s):
-    """Device time of one more main-path solve by kernel, under
-    torch.profiler.  device_idle_share sets that busy time against the wall
-    time of the unprofiled solve of the main phase (solve_s, same call,
-    same inputs); profiled_idle_share sets it against the profiled solve's
-    own wall time, which the profiler's host overhead inflates."""
+def phase_profile(run, solve_s, config):
+    """Device time of one more solve (`run()`, which ends on a host copy of
+    its result) by kernel, under torch.profiler.  device_idle_share sets
+    that busy time against the wall time of the unprofiled solve of the
+    same inputs earlier in this call (solve_s); profiled_idle_share sets it
+    against the profiled solve's own wall time, which the profiler's host
+    overhead inflates."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        fn(*args)[4].cpu()
+        run()
         wall_ms = (time.perf_counter() - t0) * 1e3
     kernels = []
     for ev in prof.key_averages():
@@ -299,13 +402,101 @@ def phase_profile(fn, args, solve_s):
         c = cats.setdefault(_category(name), {"ms": 0.0, "launches": 0})
         c["ms"] += ms
         c["launches"] += count
-    emit({"phase": "profile", "device_busy_ms": busy,
+    emit({"phase": "profile", "config": config, "device_busy_ms": busy,
           "unprofiled_wall_ms": solve_s * 1e3,
           "device_idle_share": 1.0 - busy / (solve_s * 1e3),
           "profiled_wall_ms": wall_ms,
           "profiled_idle_share": 1.0 - busy / wall_ms, "by_category": cats,
           "top": [{"name": name[:100], "ms": ms, "count": count}
                   for ms, count, name in kernels[:12]]})
+
+
+def phase_single():
+    """BASELINE configs 1 and 2 through socp_tpu_torch.solve on the card."""
+    from socp_tpu_torch import SolverConfig, Status, solve
+    from socp_tpu_torch.models.portfolio import portfolio, portfolio_risk
+    from socp_tpu_torch.models.random_socp import random_socp
+
+    prob1, known = random_socp(SEED, n=50, l=10, qs=(10, 14, 20))
+    prob2, info = portfolio(SEED, n=500, k=20)
+    check((prob2.n, prob2.m, prob2.p, prob2.dims.qs) == (500, 1021, 1, (521,)),
+          f"config 2 shape: n={prob2.n} m={prob2.m} p={prob2.p}")
+    runs = (
+        ("config1", "random_socp(0, n=50, l=10, qs=(10, 14, 20))", prob1, 0),
+        ("config2", "portfolio(0, n=500, k=20)", prob2, 0),
+        ("config2_gondzio1", "portfolio(0, n=500, k=20)", prob2, 1),
+    )
+    by_config = {}
+    out = {}
+    for label, source, prob, g in runs:
+        cfg = SolverConfig(gondzio_correctors=g)
+        solve(prob, config=cfg, device="cuda")           # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sol = solve(prob, config=cfg, device="cuda")     # ends on host copies
+        solve_s = time.perf_counter() - t0
+        launches = read_counts()
+        reps = []
+        for _ in range(2):
+            t0 = time.perf_counter()
+            solve(prob, config=cfg, device="cuda")
+            reps.append(time.perf_counter() - t0)
+        solve_s = statistics.median([solve_s] + reps)
+
+        check(sol.status == Status.OPTIMAL and not sol.inaccurate,
+              f"{label}: {sol}")
+        check(sol.pres <= 1e-8 and sol.dres <= 1e-8
+              and (sol.gap <= 1e-8 or sol.relgap <= 1e-8),
+              f"{label} misses the strict 1e-8 tolerances: {sol}")
+        check(launches["chol_batched"] == launches["tri_pair_batched"] == 0,
+              f"{label}: batched kernels launched: {launches}")
+        # p > 0: init 2 Cholesky + 13 pair solves; per iteration 2 + 10,
+        # and 3 pair solves per Gondzio corrector
+        n_iter = launches["chol_single"] // 2 - 1
+        check(n_iter >= 1 and launches["chol_single"] == 2 + 2 * n_iter
+              and launches["tri_pair_single"] == 13 + (10 + 3 * g) * n_iter,
+              f"{label}: launch ratios {launches}")
+        check(sol.iterations <= n_iter <= sol.iterations + 1,
+              f"{label}: {n_iter} loop iterations vs {sol.iterations}")
+        if label == "config1":
+            model = {"pcost_rel_known": abs(sol.pcost - known.pcost)
+                     / max(1.0, abs(known.pcost))}
+            check(model["pcost_rel_known"] <= 1e-6,
+                  f"config1 pcost {sol.pcost} vs known {known.pcost}")
+        else:
+            w = sol.x
+            model = {"risk": portfolio_risk(info, w),
+                     "sigma_max": info["sigma_max"],
+                     "budget_err": abs(float(np.sum(w)) - 1.0),
+                     "w_min": float(w.min())}
+            check(model["risk"] <= info["sigma_max"] * (1 + 1e-6)
+                  and model["budget_err"] < 1e-6 and model["w_min"] >= -1e-7,
+                  f"{label}: portfolio checks {model}")
+        row = {"phase": "single", "config": label, "source": source,
+               "gondzio_correctors": g, "status": sol.status_name,
+               "iterations": sol.iterations, "loop_iterations": n_iter,
+               "solve_ms": solve_s * 1e3,
+               "ms_per_iteration": solve_s * 1e3 / n_iter,
+               "pcost": sol.pcost, "gap": sol.gap, "relgap": sol.relgap,
+               "pres": sol.pres, "dres": sol.dres, "launches": launches,
+               **model}
+        if g == 0:
+            by_config[label] = launches
+            cpu = solve(prob, config=cfg, device="cpu")   # plain kernels
+            rel = abs(cpu.pcost - sol.pcost) / max(1.0, abs(sol.pcost))
+            check(cpu.status == sol.status and rel <= 1e-8,
+                  f"{label}: CPU {cpu} vs card {sol}")
+            row["cpu_recheck"] = {"status": cpu.status_name,
+                                  "iterations": cpu.iterations,
+                                  "pcost_rel": rel}
+        emit(row)
+        out[label] = (prob, cfg, solve_s)
+    g0, g1 = out["config2"][2], out["config2_gondzio1"][2]
+    emit({"phase": "single_gondzio", "config": "config2",
+          "solve_ms": {"gondzio0": g0 * 1e3, "gondzio1": g1 * 1e3}})
+    prob, cfg, solve_s = out["config2"]
+    return by_config, (lambda: solve(prob, config=cfg, device="cuda")), solve_s
 
 
 def main():
@@ -317,24 +508,44 @@ def main():
     kind = phase_device()
     phase_build()
     errs, timing = phase_kernels()
+    s_errs, s_timing = phase_single_kernels()
     launches, fn, args, solve_s = phase_main()
-    phase_profile(fn, args, solve_s)
+    phase_profile(lambda: fn(*args)[4].cpu(), solve_s, "config3")
+    s_launches, run2, solve2_s = phase_single()
+    phase_profile(run2, solve2_s, "config2")
+    errs.update(s_errs)
     meta = {
         "chol_batched": ("socp_tpu_torch/csrc/chol_batched.cu",
                          "socp_tpu/ops/pallas_chol.py:298"),
         "tri_pair_batched": ("socp_tpu_torch/csrc/tri_pair_batched.cu",
                              "socp_tpu/ops/pallas_chol.py:388"),
+        "chol_single": ("socp_tpu_torch/csrc/chol_single.cu",
+                        "socp_tpu/ops/pallas_chol.py:155"),
+        "tri_pair_single": ("socp_tpu_torch/csrc/tri_pair_single.cu",
+                            "socp_tpu/ops/pallas_chol.py:220"),
     }
+
+    def numbers(t):
+        return {"ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+                "library_ms": t["library_ms"]}
+
     rows = []
     for name, (source, replaces) in meta.items():
-        t = timing[name]
-        rows.append({
-            "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(errs[name]), "ms": t["ms"], "kernel_ms": t["ms"],
-            "plain_ms": t["plain_ms"], "bound_ms": t["bound"][0],
-            "bound_by": t["bound"][1], "library_ms": t["library_ms"],
-        })
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": launches[name],
+               "max_abs_err": max(errs[name])}
+        if name in s_timing:
+            # at config 2's shape (n = 500, k = 1) with config 2's launches;
+            # config 1's shape (n = 50) and each config's launches beside
+            row.update(numbers(s_timing[name][500]), at={"n": 500, "k": 1},
+                       launches=s_launches["config2"][name],
+                       launches_by_config={c: v[name]
+                                           for c, v in s_launches.items()},
+                       n50=numbers(s_timing[name][50]))
+        else:
+            row.update(numbers(timing[name]))
+        rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

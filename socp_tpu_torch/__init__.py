@@ -1,19 +1,21 @@
 """socp_tpu_torch — the PyTorch / CUDA port of `socp_tpu` for an NVIDIA H100.
 
-It imports torch and numpy, never jax and nothing of `socp_tpu`.  This
-slice runs the batched lockstep solve (`prepare_batch`, `solve_batch_raw`,
-`solve_batch`) in f64 through hand-written CUDA kernels for the batched
-Cholesky factor and the batched triangular-pair solve
-(`socp_tpu_torch/csrc/`).  Entry points run on the card unless the caller
-passes `device="cpu"`.
+It imports torch and numpy, never jax and nothing of `socp_tpu`.  It runs
+the single-instance solve (`solve`) and the batched lockstep solve
+(`prepare_batch`, `solve_batch_raw`, `solve_batch`) in f64 through
+hand-written CUDA kernels for the Cholesky factor and the triangular-pair
+solve, single-instance and batched (`socp_tpu_torch/csrc/`).  Entry points
+run on the card unless the caller passes `device="cpu"`.
 """
 
-from socp_tpu_torch.api import prepare_batch, solve_batch, solve_batch_raw
+from socp_tpu_torch.api import (prepare_batch, solve, solve_batch,
+                                solve_batch_raw)
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from socp_tpu_torch.problem import ConeDims, SocpProblem
 from socp_tpu_torch.solution import Solution, Status
 
 __all__ = [
+    "solve",
     "prepare_batch",
     "solve_batch",
     "solve_batch_raw",

@@ -1,20 +1,25 @@
-"""Public batched solver API of the port: host-side padding and layout, the
-lockstep driver on the device, unpadding — the counterpart of
-`socp_tpu/api.py`'s batched entry points.
+"""Public solver API of the port: host-side padding and layout, the IPM
+driver on the device, unpadding — the counterpart of `socp_tpu/api.py`.
 
+    sol = solve(prob)                                   # one SOCP -> Solution
     fn, args, layout = prepare_batch(c, G, h, dims)    # data on the card once
     x, y, s, z, status, k, stats, hist = fn(*args)      # torch tensors
     out = solve_batch_raw(c, G, h, dims)                # numpy 8-tuple
     sols = solve_batch(c, G, h, dims)                   # list[Solution]
 
+`solve` runs the driver on a batch of one, so its KKT factor and
+back-solves go through the single-instance kernels (`ops.chol.cholesky` /
+`tri_pair_solve` route a batch of one there); the batched entry points run
+the batched kernels.
+
 Precision: everything is f64 (`torch.float64`), iterates, products,
 factors and solves alike.  TF32 plays no part: no f32 product is on this
 path, so `torch.backends.*.allow_tf32` cannot change a result.
 
-Device: `device=None` means `"cuda"`; where CUDA is absent that raises
-instead of carrying on quietly on the CPU.  `device="cpu"` runs the same
-driver with the kernels' plain PyTorch versions (the tests' path).
-Single-instance `solve` (configs 1 and 2) is a later slice of the port.
+Device: every entry point takes `device`; `device=None` means `"cuda"`,
+and where CUDA is absent that raises instead of carrying on quietly on the
+CPU.  `device="cpu"` runs the same driver with the kernels' plain PyTorch
+versions (the tests' path).
 """
 
 from __future__ import annotations
@@ -27,7 +32,7 @@ import torch
 from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from socp_tpu_torch.ipm import driver
-from socp_tpu_torch.problem import ConeDims
+from socp_tpu_torch.problem import ConeDims, SocpProblem
 from socp_tpu_torch.solution import Solution, Status
 
 
@@ -43,10 +48,11 @@ def resolve_device(device=None) -> torch.device:
 
 
 def _resolve_config(config: SolverConfig) -> SolverConfig:
-    """Resolve the auto fields as the reference does for a batched solve
-    off the TPU (socp_tpu/api.py `_resolve_pallas`): no Gondzio corrector.
-    `use_pallas`, `invert_factor`, `native_dd` and `factor_dtype="dd32"`
-    all select the one f64 kernel path (see config.py)."""
+    """Resolve the auto fields as the reference does off the TPU, for a
+    single and a batched solve alike (socp_tpu/api.py `_resolve_pallas`):
+    no Gondzio corrector, so CPU runs stay iteration-comparable with the
+    reference.  `use_pallas`, `invert_factor`, `native_dd` and
+    `factor_dtype="dd32"` all select the one f64 kernel path (config.py)."""
     if config.factor_dtype not in (None, "dd32", "float64"):
         raise NotImplementedError(
             f"factor_dtype={config.factor_dtype!r}: the port factors in f64; "
@@ -55,6 +61,67 @@ def _resolve_config(config: SolverConfig) -> SolverConfig:
     if config.gondzio_correctors is None:
         config = dataclasses.replace(config, gondzio_correctors=0)
     return config
+
+
+def _put(a, dev) -> torch.Tensor:
+    return torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)
+
+
+def _solution(config: SolverConfig, x, y, s, z, status, k, stats,
+              hist) -> Solution:
+    """One instance's numpy outputs (s, z unpadded) as a Solution."""
+    return Solution(
+        history=hist[: int(k)] if config.collect_history else None,
+        x=x, y=y, s=s, z=z,
+        status=Status(int(status)),
+        iterations=int(k),
+        pcost=float(stats[0]),
+        dcost=float(stats[1]),
+        gap=float(stats[2]),
+        relgap=float(stats[3]),
+        pres=float(stats[4]),
+        dres=float(stats[5]),
+        inaccurate=bool(stats[6] > 0.5),
+    )
+
+
+def solve(
+    prob: SocpProblem,
+    config: SolverConfig = DEFAULT_CONFIG,
+    dtype=None,
+    verbose: bool | None = None,
+    warm: tuple | None = None,
+    device=None,
+) -> Solution:
+    """Solve one SOCP (optionally with quadratic objective P), the port of
+    `socp_tpu.solve`.
+
+    `warm`: optional (x, y, s, z) starting point in the ORIGINAL (unpadded)
+    cone order, e.g. a previous Solution's fields after a small problem
+    change; s and z are recentered by config.warm_push."""
+    dev = resolve_device(device)
+    if dtype not in (None, torch.float64):
+        raise ValueError(f"the port runs in torch.float64 only, got {dtype}")
+    if verbose is not None and verbose != config.verbose:
+        config = dataclasses.replace(config, verbose=verbose)
+    config = _resolve_config(config)
+    layout = make_layout(prob.dims, config.bucket_multiple)
+    has_P = prob.P is not None
+
+    def one(a):
+        return _put(a, dev)[None]
+
+    args = (one(prob.c), one(layout.pad_rows(prob.G)),
+            one(layout.pad_vec(prob.h)), one(prob.A), one(prob.b),
+            one(prob.P) if has_P else _put(np.zeros((0, 0)), dev))
+    if warm is not None:
+        xw, yw, sw, zw = (np.array(w, np.float64) for w in warm)
+        warm = (one(xw), one(yw), one(layout.pad_vec(sw)),
+                one(layout.pad_vec(zw)))
+    out = driver.solve_core(layout, config, *args, has_P=has_P, warm=warm)
+    x, y, s, z, status, k, stats, hist = (t[0].cpu().numpy() for t in out)
+    return _solution(config, x, y, layout.unpad_vec(s), layout.unpad_vec(z),
+                     status, k, stats, hist)
 
 
 def prepare_batch(
@@ -82,7 +149,7 @@ def prepare_batch(
         P = np.zeros((0, 0))
 
     def put(a):
-        return torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)
+        return _put(a, dev)
 
     def batched(a, ndim):
         t = put(a)
@@ -128,19 +195,6 @@ def solve_batch(
     x, y, s, z, status, k, stats, hist = solve_batch_raw(
         c, G, h, dims, A=A, b=b, P=P, config=config, dtype=dtype,
         device=device)
-    return [
-        Solution(
-            history=hist[i, : int(k[i])] if config.collect_history else None,
-            x=x[i], y=y[i], s=s[i], z=z[i],
-            status=Status(int(status[i])),
-            iterations=int(k[i]),
-            pcost=float(stats[i, 0]),
-            dcost=float(stats[i, 1]),
-            gap=float(stats[i, 2]),
-            relgap=float(stats[i, 3]),
-            pres=float(stats[i, 4]),
-            dres=float(stats[i, 5]),
-            inaccurate=bool(stats[i, 6] > 0.5),
-        )
-        for i in range(x.shape[0])
-    ]
+    return [_solution(config, x[i], y[i], s[i], z[i], status[i], k[i],
+                      stats[i], hist[i])
+            for i in range(x.shape[0])]

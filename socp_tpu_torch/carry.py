@@ -13,6 +13,16 @@ import torch
 
 from socp_tpu_torch.api import resolve_device
 from socp_tpu_torch.cones.layout import ConeLayout
+from socp_tpu_torch.problem import ConeDims, SocpProblem
+
+
+def problem_from_reference(prob) -> SocpProblem:
+    """The port's SocpProblem from a reference `socp_tpu.SocpProblem` (its
+    fields are numpy arrays, read here by name; nothing of the reference is
+    imported): the same data, so both packages solve the same instance."""
+    dims = ConeDims(prob.dims.l, tuple(prob.dims.qs))
+    return SocpProblem(c=prob.c, G=prob.G, h=prob.h, dims=dims,
+                       A=prob.A, b=prob.b, P=prob.P)
 
 
 def from_reference_warm(x, y, s, z, layout: ConeLayout, device=None):

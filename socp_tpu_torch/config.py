@@ -4,7 +4,8 @@ The port keeps every field so that a config written for the reference is a
 config for the port.  Its runtime is f64 end to end (the card has native
 FP64), so the fields that choose among the reference's TPU precision and
 kernel routes all map onto the port's single path — f64 iterates, the
-batched f64 Cholesky kernel and the batched f64 triangular-pair kernel:
+f64 Cholesky kernels and the f64 triangular-pair kernels (single-instance
+for `solve`, batched for the batched entry points):
 
   * `native_dd` (dd32 everywhere on the TPU)        -> the f64 path;
   * `factor_dtype="dd32"` (dd32 factor)             -> the f64 path;
@@ -56,7 +57,7 @@ class SolverConfig:
     invert_factor: bool | None = None
     ring_schur: bool = False
     # Gondzio centrality correctors per iteration; None = auto, which the
-    # port resolves as the reference does for a batched solve off the TPU: 0.
+    # port resolves as the reference does off the TPU: 0 (api.py).
     gondzio_correctors: int | None = None
     # Warm-start recentering margin (relative to the iterate's magnitude).
     warm_push: float = 0.05

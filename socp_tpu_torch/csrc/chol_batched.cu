@@ -28,9 +28,12 @@
 // reference's jnp.linalg.cholesky.  The update is written with __dmul_rn /
 // __dsub_rn, which the compiler never contracts into an FMA: every value
 // is rounded as the plain PyTorch version rounds it, so the two agree bit
-// for bit on the card (sqrt and division are IEEE-rounded in both).
+// for bit on the card (sqrt and division are IEEE-rounded in both).  The
+// column loop itself is in chol_column.cuh, shared with chol_single.cu.
 
 #include <cuda_runtime.h>
+
+#include "chol_column.cuh"
 
 namespace {
 
@@ -39,43 +42,9 @@ constexpr int kThreads = 256;
 __global__ void __launch_bounds__(kThreads)
 chol_batched_kernel(const double* __restrict__ H, double* __restrict__ L, int n) {
   extern __shared__ double smem[];
-  double* M = smem;            // n x n working matrix, row-major
-  double* col = smem + n * n;  // scaled column j
-  const int nn = n * n;
-  const size_t base = static_cast<size_t>(blockIdx.x) * nn;
-
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) M[e] = H[base + e];
-  __syncthreads();
-
-  for (int j = 0; j < n; ++j) {
-    // pivot and scaled column: col[i] = M[i][j] / sqrt(M[j][j]), i >= j
-    const double d = sqrt(M[j * n + j]);
-    for (int i = j + threadIdx.x; i < n; i += blockDim.x) {
-      col[i] = M[i * n + j] / d;
-    }
-    __syncthreads();
-    for (int i = j + threadIdx.x; i < n; i += blockDim.x) {
-      M[i * n + j] = col[i];
-    }
-    // rank-1 update of the trailing lower triangle: M[i][k] -= col[i] col[k]
-    const int t = n - j - 1;
-    for (int e = threadIdx.x; e < t * t; e += blockDim.x) {
-      const int r = e / t;
-      const int c = e - r * t;
-      if (c <= r) {
-        const int i = j + 1 + r;
-        const int k = j + 1 + c;
-        M[i * n + k] = __dsub_rn(M[i * n + k], __dmul_rn(col[i], col[k]));
-      }
-    }
-    __syncthreads();
-  }
-
-  for (int e = threadIdx.x; e < nn; e += blockDim.x) {
-    const int r = e / n;
-    const int c = e - r * n;
-    L[base + e] = c <= r ? M[e] : 0.0;
-  }
+  const size_t base = static_cast<size_t>(blockIdx.x) * n * n;
+  // the n x n working matrix, then the scaled column j
+  chol_column_loop(H + base, L + base, smem, smem + n * n, n);
 }
 
 }  // namespace

@@ -14,8 +14,10 @@ is reduced to two SPD factorizations:
     S    = A H^-1 A'    + delta I      -> Cholesky L_S      (p x p)
 
 with `Paug = P + rho A'A` (see the reference's module doc).  The factors go
-through the batched Cholesky kernel and every back-solve through the
-batched triangular-pair kernel (`socp_tpu_torch.ops.chol`); H's product
+through the Cholesky router and every back-solve through the
+triangular-pair router (`socp_tpu_torch.ops.chol.cholesky` /
+`tri_pair_solve`): a batch of one instance (the single solve) runs the
+single-instance kernels, a larger batch the batched ones.  H's product
 Ghat'Ghat is a plain batched matmul, as the reference leaves it to XLA.
 All arithmetic is f64.
 """
@@ -28,7 +30,7 @@ import torch
 
 from socp_tpu_torch.cones import ops as cops
 from socp_tpu_torch.cones.layout import ConeLayout
-from socp_tpu_torch.ops.chol import chol_batched, tri_pair_batched
+from socp_tpu_torch.ops import chol
 
 
 def _mv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -56,7 +58,7 @@ class EqChol(NamedTuple):
         """M^-1 rhs for rhs (B, n) or (B, n, k), via the tri-pair kernel."""
         vec = rhs.ndim == 2
         r = rhs[..., None] if vec else rhs
-        y = tri_pair_batched(self.L, (self.d[..., None] * r).contiguous())
+        y = chol.tri_pair_solve(self.L, (self.d[..., None] * r).contiguous())
         y = self.d[..., None] * y
         return y[..., 0] if vec else y
 
@@ -69,7 +71,7 @@ def _eq_chol(M: torch.Tensor, delta: float) -> EqChol:
     # floor the regularization at a multiple of the factor dtype's epsilon
     delta_eff = max(delta, 32.0 * finfo.eps)
     torch.diagonal(Mn, dim1=1, dim2=2).add_(delta_eff)   # Mn is a fresh tensor
-    return EqChol(L=chol_batched(Mn), d=d)
+    return EqChol(L=chol.cholesky(Mn), d=d)
 
 
 class DenseKKT(NamedTuple):

@@ -3,9 +3,10 @@
 Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own shared
 library with a plain C interface (no PyTorch headers, so a build takes
 seconds) and loaded with `ctypes`.  Builds go to `socp_tpu_torch/_build/`
-(listed in .gitignore), keyed by a hash of the source and the flags, at
-first use; `build()` compiles every missing library with one `nvcc` per
-source, all started together.  Nothing here runs at import time.
+(listed in .gitignore), keyed by a hash of the source, the shared headers
+(`csrc/*.cuh`) and the flags, at first use; `build()` compiles every
+missing library with one `nvcc` per source, all started together.  Nothing
+here runs at import time.
 """
 
 from __future__ import annotations
@@ -33,6 +34,8 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 KERNELS = {
     "chol_batched": ("chol_batched_f64", (_P, _P, _I, _I, _P)),
     "tri_pair_batched": ("tri_pair_batched_f64", (_P, _P, _P, _I, _I, _I, _P)),
+    "chol_single": ("chol_single_f64", (_P, _P, _I, _P)),
+    "tri_pair_single": ("tri_pair_single_f64", (_P, _P, _P, _I, _I, _P)),
 }
 
 _loaded: dict = {}   # kernel name -> loaded C function
@@ -41,6 +44,8 @@ _loaded: dict = {}   # kernel name -> loaded C function
 def _target(name: str) -> tuple[Path, Path]:
     src = CSRC / f"{name}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
+    for header in sorted(CSRC.glob("*.cuh")):    # the sources' shared code
+        key.update(header.read_bytes())
     return src, BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
 
 

@@ -1,20 +1,31 @@
-"""Batched f64 Cholesky and triangular-pair solve: the port of the two
-instance-batched Pallas kernels of `socp_tpu/ops/pallas_chol.py`.
+"""f64 Cholesky and triangular-pair solve: the port of the four dd Pallas
+kernels of `socp_tpu/ops/pallas_chol.py` that the solver runs.
 
-  chol_batched(H)          lower L with L L' = H, zeros above the diagonal
-                           (port of `_dd_chol_batch_kernel`)
-  tri_pair_batched(L, B)   (L L')^-1 B, forward then backward substitution
-                           (port of `_tri_pair_batch_kernel`, without its LT
-                           operand)
+  chol_batched(H)          lower L with L L' = H for a (B, n, n) batch,
+                           zeros above the diagonal (port of
+                           `_dd_chol_batch_kernel`)
+  tri_pair_batched(L, B)   (L L')^-1 B, forward then backward substitution,
+                           for a (B, n, n) factor batch (port of
+                           `_tri_pair_batch_kernel`, without its LT operand)
+  chol_single(H)           the same for ONE (n, n) matrix, any n (port of
+                           `_dd_chol_kernel`)
+  tri_pair_single(L, B)    the same for one (n, n) factor and an (n, k) rhs
+                           (port of `_tri_pair_kernel`)
+  cholesky(H), tri_pair_solve(L, B)
+                           the routers, counterparts of the reference's
+                           `cholesky_dd_v` / `tri_pair_solve_v`: a batch of
+                           one instance goes to the single kernels, a larger
+                           batch to the batched ones.
 
 Each wrapper takes its plain PyTorch version only for a tensor on the CPU;
 for a CUDA tensor it launches the hand-written kernel from
 `socp_tpu_torch/csrc/` or raises.  The plain versions repeat the kernels'
 arithmetic step for step (the same right-looking column loop and
 substitution loops), so a matrix that is not positive definite gives NaN
-in both, never an exception.  `chol_launches` / `tri_pair_launches` count
-kernel launches (never plain calls), so a run can show that it went
-through the kernels.
+in both, never an exception.  The `*_launches` counters count kernel-wrapper
+launches (never plain calls), so a run can show that it went through the
+kernels.  One launch of `chol_single` above n = 169 is one call of its C
+entry point, which enqueues 2 ceil(n / 32) CUDA kernels (csrc/chol_single.cu).
 """
 
 from __future__ import annotations
@@ -24,6 +35,8 @@ import torch
 # kernel launches since the last reset (a caller may set them to 0)
 chol_launches = 0
 tri_pair_launches = 0
+chol_single_launches = 0
+tri_pair_single_launches = 0
 
 # shared memory one thread block can use on Hopper (bytes)
 SMEM_LIMIT = 232_448
@@ -57,11 +70,25 @@ def tri_pair_batched_plain(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return X / diag
 
 
-def _check(name: str, t: torch.Tensor):
+def chol_single_plain(H: torch.Tensor) -> torch.Tensor:
+    """The column loop of `chol_batched_plain` on one (n, n) matrix.  It is
+    also the plain version of the kernel's blocked regime (n > 169): the
+    blocked order applies to every entry the same rounded operations in the
+    same order (csrc/chol_single.cu)."""
+    return chol_batched_plain(H[None])[0]
+
+
+def tri_pair_single_plain(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """The substitution loops of `tri_pair_batched_plain` on one factor."""
+    return tri_pair_batched_plain(L[None], rhs[None])[0]
+
+
+def _check(name: str, t: torch.Tensor, ndim: int = 3):
     if t.dtype != torch.float64:
         raise TypeError(f"{name}: expected float64, got {t.dtype}")
-    if t.ndim != 3:
-        raise ValueError(f"{name}: expected a (B, n, *) batch, got {tuple(t.shape)}")
+    if t.ndim != ndim:
+        what = "a (B, n, *) batch" if ndim == 3 else "an (n, *) matrix"
+        raise ValueError(f"{name}: expected {what}, got {tuple(t.shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: expected a contiguous tensor")
     if t.device.type not in ("cpu", "cuda"):
@@ -73,8 +100,9 @@ def _smem_check(name: str, n: int, extra: int):
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"{name}: n={n} needs {smem} B of shared memory, above the "
-            f"{SMEM_LIMIT} B one block has; larger factors need the blocked "
-            "design (ROADMAP.md, queue 2 item 3)"
+            f"{SMEM_LIMIT} B one block has; a batch of factors above n = 169 "
+            "needs a blocked batched design (ROADMAP.md, queue 1 item 14); "
+            "a single instance goes to chol_single / tri_pair_single"
         )
 
 
@@ -133,3 +161,73 @@ def tri_pair_batched(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     global tri_pair_launches
     tri_pair_launches += 1
     return X
+
+
+def chol_single(H: torch.Tensor) -> torch.Tensor:
+    """Lower Cholesky factor of one (n, n) f64 matrix, any n."""
+    _check("chol_single", H, ndim=2)
+    n = H.shape[0]
+    if H.shape != (n, n):
+        raise ValueError(f"chol_single: not square: {tuple(H.shape)}")
+    if H.device.type == "cpu":
+        return chol_single_plain(H)
+    L = torch.empty_like(H)
+    if n == 0:
+        return L
+    from socp_tpu_torch.ops import _build
+
+    with torch.cuda.device(H.device):
+        err = _build.kernel("chol_single")(H.data_ptr(), L.data_ptr(), n,
+                                            _stream(H))
+    if err:
+        raise RuntimeError(f"chol_single: launch failed, cudaError {err}")
+    global chol_single_launches
+    chol_single_launches += 1
+    return L
+
+
+def tri_pair_single(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """(L L')^-1 rhs for one (n, n) lower factor and an (n, k) rhs."""
+    _check("tri_pair_single", L, ndim=2)
+    _check("tri_pair_single", rhs, ndim=2)
+    n, k = rhs.shape
+    if L.shape != (n, n):
+        raise ValueError(
+            f"tri_pair_single: shapes {tuple(L.shape)} / {tuple(rhs.shape)}")
+    if L.device != rhs.device:
+        raise ValueError("tri_pair_single: L and rhs on different devices")
+    if L.device.type == "cpu":
+        return tri_pair_single_plain(L, rhs)
+    if 2 * n * 8 > SMEM_LIMIT:
+        raise ValueError(
+            f"tri_pair_single: n={n} is above {SMEM_LIMIT // 16}: the kernel "
+            "keeps the n pivots and one rhs column in shared memory")
+    X = torch.empty_like(rhs)
+    if X.numel() == 0:
+        return X
+    from socp_tpu_torch.ops import _build
+
+    with torch.cuda.device(L.device):
+        err = _build.kernel("tri_pair_single")(
+            L.data_ptr(), rhs.data_ptr(), X.data_ptr(), n, k, _stream(L))
+    if err:
+        raise RuntimeError(f"tri_pair_single: launch failed, cudaError {err}")
+    global tri_pair_single_launches
+    tri_pair_single_launches += 1
+    return X
+
+
+def cholesky(H: torch.Tensor) -> torch.Tensor:
+    """Lower factors of a (B, n, n) batch: B == 1 through `chol_single`,
+    larger batches through `chol_batched`."""
+    if H.ndim == 3 and H.shape[0] == 1:
+        return chol_single(H[0])[None]
+    return chol_batched(H)
+
+
+def tri_pair_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """(L L')^-1 rhs for a (B, n, n) factor batch and (B, n, k) rhs: B == 1
+    through `tri_pair_single`, larger batches through `tri_pair_batched`."""
+    if L.ndim == 3 and L.shape[0] == 1 and rhs.ndim == 3:
+        return tri_pair_single(L[0], rhs[0])[None]
+    return tri_pair_batched(L, rhs)

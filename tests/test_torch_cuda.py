@@ -73,13 +73,45 @@ def test_non_pd_gives_non_finite_factor(card):
 
 
 def test_kernels_refuse_what_they_cannot_hold(card):
-    with pytest.raises(ValueError, match="blocked design"):
+    with pytest.raises(ValueError, match="blocked batched design.*queue 1 item 14"):
         chol.chol_batched(torch.eye(170, dtype=torch.float64, device=card)[None])
     # an empty factor launches nothing
     before = chol.chol_launches
     assert chol.chol_batched(torch.zeros(4, 0, 0, dtype=torch.float64,
                                          device=card)).shape == (4, 0, 0)
     assert chol.chol_launches == before
+
+
+@pytest.mark.parametrize("n", [1, 5, 50, 169, 170, 333, 500, 768, 1000])
+def test_chol_single_kernel_matches_plain(card, n):
+    """n <= 169 runs the one-block kernel, larger n the blocked one; both
+    round as the plain column loop does."""
+    H = torch.as_tensor(_spd(n, 1, n)[0], device=card)
+    before = chol.chol_single_launches
+    L = chol.chol_single(H)
+    assert chol.chol_single_launches == before + 1
+    _close(L, chol.chol_single_plain(H), 1e-9, 1e-11)
+
+
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 1), (50, 1), (50, 5), (50, 11),
+                                 (333, 3), (500, 1), (500, 3), (768, 1),
+                                 (768, 3)])
+def test_tri_pair_single_kernel_matches_plain(card, n, k):
+    """Every (n, k) of configs 1 and 2 (p = 5: (50, 5), (5, 1)), and more;
+    k = 11 takes two passes over the rhs columns (8 a pass)."""
+    L = chol.chol_single(torch.as_tensor(_spd(n + k, 1, n)[0], device=card))
+    rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((n, k)),
+                          device=card)
+    before = chol.tri_pair_single_launches
+    X = chol.tri_pair_single(L, rhs)
+    assert chol.tri_pair_single_launches == before + 1
+    _close(X, chol.tri_pair_single_plain(L, rhs), 1e-10, 1e-12)
+
+
+@pytest.mark.parametrize("n", [102, 500])
+def test_single_non_pd_gives_non_finite_factor(card, n):
+    L = chol.chol_single(torch.as_tensor(_spd(7, 1, n, neg=True)[0], device=card))
+    assert not bool(torch.isfinite(L).all())
 
 
 def _cases():
@@ -109,3 +141,28 @@ def test_card_solve_matches_reference(card, case):
         # p > 0: a factor is 2 Cholesky + 1 pair solve (H^-1 A'), a
         # back-solve 3 pair solves; init 2 + 13, per iteration 2 + 10
         assert chols >= 4 and chols % 2 == 0 and tris == 5 * chols + 3
+
+
+@pytest.mark.parametrize("case", ["config1_n50", "portfolio_n64"])
+def test_card_single_solve_matches_reference(card, case):
+    """socp_tpu_torch.solve on the card through the single kernels only."""
+    from socp_tpu.models.portfolio import portfolio
+    from socp_tpu_torch.carry import problem_from_reference
+
+    if case == "config1_n50":
+        prob = random_socp(0, n=50, l=10, qs=(10, 14, 20))[0]
+    else:
+        prob = portfolio(0, n=64, k=8)[0]
+    ref = socp_tpu.solve(prob)
+    counts = ("chol_launches", "tri_pair_launches", "chol_single_launches",
+              "tri_pair_single_launches")
+    before = [getattr(chol, c) for c in counts]
+    out = socp_tpu_torch.solve(problem_from_reference(prob))  # default: cuda
+    chols_b, tris_b, chols, tris = (getattr(chol, c) - b
+                                    for c, b in zip(counts, before))
+    assert out.status == int(ref.status) == 0
+    assert abs(out.pcost - ref.pcost) <= 1e-8 * max(1.0, abs(ref.pcost))
+    assert chols_b == tris_b == 0
+    # p > 0: init 2 Cholesky + 13 pair solves, per iteration 2 + 10
+    assert chols >= 4 and chols % 2 == 0 and tris == 5 * chols + 3
+    assert out.iterations <= chols // 2 - 1 <= out.iterations + 1

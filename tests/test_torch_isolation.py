@@ -13,6 +13,7 @@ import torch
 import socp_tpu_torch
 from socp_tpu_torch.carry import from_reference_warm
 from socp_tpu_torch.cones.layout import make_layout
+from socp_tpu_torch.models.portfolio import portfolio
 from socp_tpu_torch.models.robust_ls import robust_ls_batch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -34,12 +35,15 @@ def test_imports_without_jax_and_without_the_reference():
                   if m == "socp_tpu" or m.startswith("socp_tpu.")]
         assert not loaded, loaded
         assert "triton" not in sys.modules
-        print(len(names))
+        print(" ".join(names))
     """)
     res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
-    assert int(res.stdout.strip()) >= 12
+    names = res.stdout.split()
+    assert len(names) >= 19, names
+    for new in ("models.random_socp", "models.portfolio", "carry", "api"):
+        assert f"socp_tpu_torch.{new}" in names
 
 
 def test_entry_points_default_to_cuda():
@@ -50,6 +54,8 @@ def test_entry_points_default_to_cuda():
         socp_tpu_torch.solve_batch_raw(c, G, h, dims)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         socp_tpu_torch.prepare_batch(c, G, h, dims)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        socp_tpu_torch.solve(portfolio(0, n=6, k=2)[0])
     layout = make_layout(dims)
     x, s = np.zeros((2, 6)), np.zeros((2, layout.m_pad))
     with pytest.raises(RuntimeError, match="device='cpu'"):
