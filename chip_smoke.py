@@ -33,11 +33,40 @@ Phases, each printing one JSON line to stdout:
               single-instance kernels in the IPM loop's ratios, the CPU
               (plain path) re-solve agreeing; config 2 again with one Gondzio
               corrector; then a profile of config 2 as in phase 6.
-Then a {"kernels": [...]} line (the batched kernels at config 3's shapes,
-with their launches in phase 5; the single-instance ones at n = 500, k = 1
-with n = 50 beside, with their launches in phase 7's default run of
-config 2 and, per config, of configs 1 and 2) and, last, the
-{"ok": true, ...} line.
+  8. f32_kernels  the f32 instances of the four kernels (the factor of the
+              mixed-precision mode, factor_dtype="float32") against their
+              plain versions, bit for bit, on f32 SPD batches with kappa =
+              1e4 (f32 cannot factor the f64 phases' kappa = 1e8 matrices:
+              its rounding, 6e-8 relative, times 1e8 exceeds the smallest
+              pivot) made from a numpy seed: batched at n = 1 ... 240 (n <= 102
+              at B = 4096, n = 169 and 240 at B = 256) with k = 1, 3, single
+              at n = 1 ... 768 (both regimes; the one-block one ends at
+              n = 240 in f32) with k = 1, 3, 5; non-PD inputs give
+              non-finite factors; timed at B = 4096, n = 102 and single at
+              n = 128 and 500, with plain and library times as in phase 3.
+  9. f32factor  config 3 with SolverConfig(factor_dtype="float32") through
+              prepare_batch on "cuda" (TF32 off is asserted first): every
+              instance OPTIMAL at the reference's relaxed tolerances, pcost
+              within 5e-5 of the closed form, only the f32 batched kernels
+              launched, in the loop's ratios, and 8 instances re-solved on
+              the CPU agreeing in status and inaccurate flag; then a profile
+              as in phase 6.
+ 10. f32factor_single  config 2 with factor_dtype="float32" through solve:
+              status and inaccurate flag as the CPU re-solve says, the
+              portfolio's checks at this mode's tolerances, only the f32
+              single kernels launched.
+ 11. probes   the ports of the Mosaic probes (scripts/pallas_probe*.py;
+              socp_tpu_torch/ops/probes.py, csrc/probes.cu) at the probes'
+              own shapes, each bit-equal to its plain version and held to
+              its script's own check; P1, the f32 Cholesky at n = 128, runs
+              the f32 single kernel.
+Then a {"kernels": [...]} line (the f64 batched kernels at config 3's
+shapes, with their launches in phase 5; the f64 single-instance ones at
+n = 500, k = 1 with n = 50 beside, with their launches in phase 7's default
+run of config 2 and, per config, of configs 1 and 2; the f32 Cholesky and
+pair solve at B = 4096, n = 102 with the single instances at n = 500 and
+128 beside, with their launches in phases 9 and 10; the probes, with their
+launches in phase 11) and, last, the {"ok": true, ...} line.
 Any failed check exits non-zero before the last line is printed.  It needs
 CUDA and the repository: without either it exits non-zero.
 """
@@ -58,14 +87,26 @@ B_MAIN, N_MAIN = 4096, 100          # config 3: robust_ls_batch(0, 4096, n=100)
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP64_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP64 tensor core (the
                                     # card's fastest FP64 rate: a lower bound)
+FP32_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP32 (non-tensor)
 CHOL_RTOL, CHOL_ATOL = 1e-9, 1e-11  # tests/test_pallas.py:38-53, 90-107
 TRI_RTOL, TRI_ATOL = 1e-10, 1e-12   # tests/test_pallas.py:71-87, 110-129
 SINGLE_NS = (1, 5, 50, 333, 500, 768)   # up to the reference's _PALLAS_MAX_N
 SINGLE_KS = (1, 3, 5)                   # 5: config 1's p, the k of H^-1 A'
+F32_BATCHED = ((B_MAIN, 1), (B_MAIN, 3), (B_MAIN, 37), (B_MAIN, 102),
+               (256, 169), (256, 240))      # (B, n); 240: one block's limit
+F32_SINGLE_NS = (1, 5, 50, 128, 240, 241, 333, 500, 768)
+RELAXED_FEAS, RELAXED_GAP = 1e-4, 5e-5  # feastol_inacc, abstol/reltol_inacc
 COUNTERS = {"chol_batched": "chol_launches",
             "tri_pair_batched": "tri_pair_launches",
             "chol_single": "chol_single_launches",
-            "tri_pair_single": "tri_pair_single_launches"}
+            "tri_pair_single": "tri_pair_single_launches",
+            "chol_batched_f32": "chol_launches_f32",
+            "tri_pair_batched_f32": "tri_pair_launches_f32",
+            "chol_single_f32": "chol_single_launches_f32",
+            "tri_pair_single_f32": "tri_pair_single_launches_f32"}
+F64_KERNELS = ("chol_batched", "tri_pair_batched", "chol_single",
+               "tri_pair_single")
+F32_KERNELS = tuple(f"{k}_f32" for k in F64_KERNELS)
 
 
 def emit(obj):
@@ -114,23 +155,31 @@ def chol_flops(n):
     return n + n * (n + 1) // 2 + sum(t * (t + 1) for t in range(n))
 
 
-def bound(bytes_, flops):
+def bound(bytes_, flops, flops_per_s=FP64_FLOPS_PER_S):
     t_bytes = bytes_ / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / FP64_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
 def reset_counts():
-    from socp_tpu_torch.ops import chol
+    from socp_tpu_torch.ops import chol, probes
 
     for attr in COUNTERS.values():
         setattr(chol, attr, 0)
+    for name in probes.launches:
+        probes.launches[name] = 0
 
 
 def read_counts():
-    from socp_tpu_torch.ops import chol
+    from socp_tpu_torch.ops import chol, probes
 
-    return {name: getattr(chol, attr) for name, attr in COUNTERS.items()}
+    return {**{name: getattr(chol, attr) for name, attr in COUNTERS.items()},
+            **probes.launches}
+
+
+def none_of(launches, names, what):
+    check(all(launches[k] == 0 for k in names),
+          f"{what}: launched kernels of another path: {launches}")
 
 
 def phase_device():
@@ -310,6 +359,7 @@ def phase_main():
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches["chol_single"] == launches["tri_pair_single"] == 0,
           f"the batched path launched single-instance kernels: {launches}")
+    none_of(launches, F32_KERNELS, "config 3 (f64)")
 
     x = out[0].cpu().numpy()
     k = out[5].cpu().numpy()
@@ -370,7 +420,8 @@ def _category(name):
                      ("reduce", "reductions"), ("cat", "cat"),
                      ("elementwise", "elementwise"), ("copy", "copies")):
         if key in low:
-            return cat
+            # the kernels' f32 instances are <float> templates
+            return f"{cat}_f32" if "_kernel<float>" in low else cat
     return "other"
 
 
@@ -451,6 +502,7 @@ def phase_single():
               f"{label} misses the strict 1e-8 tolerances: {sol}")
         check(launches["chol_batched"] == launches["tri_pair_batched"] == 0,
               f"{label}: batched kernels launched: {launches}")
+        none_of(launches, F32_KERNELS, label)
         # p > 0: init 2 Cholesky + 13 pair solves; per iteration 2 + 10,
         # and 3 pair solves per Gondzio corrector
         n_iter = launches["chol_single"] // 2 - 1
@@ -499,6 +551,351 @@ def phase_single():
     return by_config, (lambda: solve(prob, config=cfg, device="cuda")), solve_s
 
 
+def f32_spd(rng, B, n, neg=False):
+    return torch.as_tensor(spd_batch(rng, B, n, kappa=1e4, neg=neg),
+                           dtype=torch.float32, device="cuda")
+
+
+def bit_equal(a, b, what):
+    """The kernel's output a against its plain version's b: bit for bit.
+    Returns the largest absolute difference (0.0)."""
+    torch.cuda.synchronize()
+    err = float((a - b).abs().max()) if a.numel() else 0.0
+    check(torch.equal(a, b), f"{what}: not bit-equal to plain, max err {err}")
+    return err
+
+
+def phase_f32_kernels():
+    """The f32 instances of the four kernels against their plain versions,
+    bit for bit; the non-PD check; timings at config 3's shape and at
+    n = 128 (P1's) and n = 500 (config 2's) single."""
+    from socp_tpu_torch.ops import chol
+
+    rng = np.random.default_rng(SEED + 2)
+    dev = torch.device("cuda")
+    errs = {"chol_f32": [], "tri_pair_f32": []}
+    for B, n in F32_BATCHED:
+        H = f32_spd(rng, B, n)
+        L = chol.chol_batched(H)
+        errs["chol_f32"].append(bit_equal(L, chol.chol_batched_plain(H),
+                                          f"chol_batched f32 B={B} n={n}"))
+        for k in (1, 3) if n < 240 else (1,):     # n = 240, k = 3: too big
+            rhs = torch.randn((B, n, k), generator=torch.Generator(dev).manual_seed(k),
+                              device=dev, dtype=torch.float32)
+            errs["tri_pair_f32"].append(bit_equal(
+                chol.tri_pair_batched(L, rhs), chol.tri_pair_batched_plain(L, rhs),
+                f"tri_pair_batched f32 B={B} n={n} k={k}"))
+    for n in F32_SINGLE_NS:
+        H = f32_spd(rng, 1, n)[0]
+        L = chol.chol_single(H)
+        errs["chol_f32"].append(bit_equal(L, chol.chol_single_plain(H),
+                                          f"chol_single f32 n={n}"))
+        for k in SINGLE_KS:
+            rhs = torch.as_tensor(rng.standard_normal((n, k)), dtype=torch.float32,
+                                  device=dev)
+            errs["tri_pair_f32"].append(bit_equal(
+                chol.tri_pair_single(L, rhs), chol.tri_pair_single_plain(L, rhs),
+                f"tri_pair_single f32 n={n} k={k}"))
+
+    bad = f32_spd(rng, 64, 102, neg=True)
+    for f in (chol.chol_batched, chol.chol_batched_plain):
+        Lb = f(bad)
+        torch.cuda.synchronize()
+        check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
+              f"{f.__name__} f32: a non-PD input gave a finite factor")
+    for n in (128, 500):                     # both regimes of the factor
+        bad = f32_spd(rng, 1, n, neg=True)[0]
+        for f in (chol.chol_single, chol.chol_single_plain):
+            Lb = f(bad)
+            torch.cuda.synchronize()
+            check(not bool(torch.isfinite(Lb).all()),
+                  f"{f.__name__} f32: a non-PD input at n={n} gave a finite factor")
+
+    nv = N_MAIN + 2
+    H = f32_spd(rng, B_MAIN, nv)
+    L = chol.chol_batched(H)
+    rhs = torch.as_tensor(rng.standard_normal((B_MAIN, nv, 1)), dtype=torch.float32,
+                          device=dev)
+    tri = 4 * B_MAIN * nv * (nv + 1) // 2      # least bytes, as phase_kernels
+    full = 4 * B_MAIN * nv * nv
+    rb = 4 * B_MAIN * nv
+    timing = {"chol_f32": {}, "tri_pair_f32": {}}
+    timing["chol_f32"]["batched"] = dict(
+        ms=cuda_ms(lambda: chol.chol_batched(H)),
+        plain_ms=cuda_ms(lambda: chol.chol_batched_plain(H)),
+        library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H)),
+        bound=bound(tri + full, B_MAIN * chol_flops(nv), FP32_FLOPS_PER_S))
+    timing["tri_pair_f32"]["batched"] = dict(
+        ms=cuda_ms(lambda: chol.tri_pair_batched(L, rhs)),
+        plain_ms=cuda_ms(lambda: chol.tri_pair_batched_plain(L, rhs)),
+        library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs, L)),
+        bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv, FP32_FLOPS_PER_S))
+    for n in (500, 128):
+        H1 = f32_spd(rng, 1, n)[0]
+        L1 = chol.chol_single(H1)
+        r1 = torch.as_tensor(rng.standard_normal((n, 1)), dtype=torch.float32,
+                             device=dev)
+        tri1 = 4 * n * (n + 1) // 2
+        timing["chol_f32"][f"single_n{n}"] = dict(
+            ms=cuda_ms(lambda: chol.chol_single(H1)),
+            plain_ms=cuda_ms(lambda: chol.chol_single_plain(H1), reps=5, warm=1),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H1)),
+            bound=bound(tri1 + 4 * n * n, chol_flops(n), FP32_FLOPS_PER_S))
+        timing["tri_pair_f32"][f"single_n{n}"] = dict(
+            ms=cuda_ms(lambda: chol.tri_pair_single(L1, r1)),
+            plain_ms=cuda_ms(lambda: chol.tri_pair_single_plain(L1, r1),
+                             reps=5, warm=1),
+            library_ms=cuda_ms(lambda: torch.cholesky_solve(r1, L1)),
+            bound=bound(tri1 + 2 * 4 * n, 2 * n * n, FP32_FLOPS_PER_S))
+    emit({"phase": "f32_kernels", "batched": [list(x) for x in F32_BATCHED],
+          "single_ns": list(F32_SINGLE_NS), "ks": list(SINGLE_KS),
+          "kappa": 1e4, "bit_equal": True,
+          "max_abs_err": {k: max(v) for k, v in errs.items()},
+          "timing": {name: {at: {kk: vv for kk, vv in t.items() if kk != "bound"}
+                            for at, t in by.items()}
+                     for name, by in timing.items()}})
+    return errs, timing
+
+
+def tf32_off():
+    """The f32 factor's products (Ghat'Ghat, Ghat' v, Ghat v) must run in
+    full f32 on cuBLAS: PyTorch's defaults, which the port never changes."""
+    state = {"allow_tf32": torch.backends.cuda.matmul.allow_tf32,
+             "float32_matmul_precision": torch.get_float32_matmul_precision()}
+    print(f"chip_smoke: f32 matmul settings {state}", flush=True)
+    check(state["allow_tf32"] is False
+          and state["float32_matmul_precision"] == "highest",
+          f"TF32 is on for f32 products: {state}")
+    return state
+
+
+def relaxed_ok(stats):
+    """The reference's relaxed ("optimal, inaccurate") tolerances."""
+    gap, relgap, pres, dres = stats[:, 2], stats[:, 3], stats[:, 4], stats[:, 5]
+    return ((pres <= RELAXED_FEAS) & (dres <= RELAXED_FEAS)
+            & ((gap <= RELAXED_GAP) | (relgap <= RELAXED_GAP)))
+
+
+def phase_f32factor():
+    """Config 3 in the mixed-precision mode through prepare_batch."""
+    from socp_tpu_torch import SolverConfig, Status, prepare_batch, solve_batch_raw
+    from socp_tpu_torch.models.robust_ls import robust_ls_batch
+
+    tf32 = tf32_off()
+    cfg = SolverConfig(factor_dtype="float32")
+    c, G, h, dims = robust_ls_batch(SEED, batch=B_MAIN, n=N_MAIN)
+    fn, args, layout = prepare_batch(c, G, h, dims, config=cfg, device="cuda")
+    fn(*args)[4].cpu()                               # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    out = fn(*args)
+    status = out[4].cpu().numpy()                    # syncs on the result
+    solve_s = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    none_of(launches, F64_KERNELS + ("chol_single_f32", "tri_pair_single_f32"),
+            "config 3 (f32 factor)")
+
+    x = out[0].cpu().numpy()
+    k = out[5].cpu().numpy()
+    stats = out[6].cpu().numpy()
+    n_opt = int(np.sum(status == int(Status.OPTIMAL)))
+    check(n_opt == B_MAIN, f"f32factor: {n_opt}/{B_MAIN} OPTIMAL")
+    ok = relaxed_ok(stats)
+    check(bool(ok.all()), f"f32factor: {int((~ok).sum())} instances miss the "
+                          "relaxed tolerances")
+    kk = dims.qs[0] - 1                              # closed form, as phase_main
+    D = -G[:, 1:kk + 1, :N_MAIN]
+    d = -h[:, 1:kk + 1]
+    xs = x[:, :N_MAIN]
+    obj = (np.linalg.norm(np.einsum("bkn,bn->bk", D, xs) - d, axis=1)
+           + 0.1 * np.linalg.norm(xs, axis=1))
+    rel = np.abs(stats[:, 0] - obj) / np.maximum(1.0, np.abs(obj))
+    check(bool((rel <= RELAXED_GAP).all()),
+          f"f32factor pcost vs closed form: max rel {rel.max()}")
+    n_iter = launches["chol_batched_f32"] - 1        # init 1 + 4, then 1 + 3
+    check(n_iter >= 1 and launches["tri_pair_batched_f32"] == 4 + 3 * n_iter,
+          f"f32factor launch ratios {launches}")
+    check(int(k.max()) <= n_iter <= int(k.max()) + 1,
+          f"f32factor: {n_iter} lockstep iterations vs max k {int(k.max())}")
+
+    cpu = solve_batch_raw(c[:8], G[:8], h[:8], dims, config=cfg, device="cpu")
+    check(bool((cpu[4] == status[:8]).all()), f"CPU status {cpu[4]} vs {status[:8]}")
+    check(bool((cpu[6][:, 6] == stats[:8, 6]).all()),
+          f"CPU inaccurate flags {cpu[6][:, 6]} vs {stats[:8, 6]}")
+    prel = np.abs(cpu[6][:, 0] - stats[:8, 0]) / np.maximum(1.0, np.abs(stats[:8, 0]))
+    check(bool((prel <= RELAXED_GAP).all()),
+          f"f32factor CPU pcost vs card: max rel {prel.max()}")
+
+    emit({"phase": "f32factor",
+          "config": f"robust_ls_batch({SEED}, batch={B_MAIN}, n={N_MAIN}), "
+                    "factor_dtype='float32'",
+          "tf32": tf32, "B": B_MAIN, "nv": int(c.shape[1]), "m_pad": layout.m_pad,
+          "optimal": n_opt, "inaccurate": int(stats[:, 6].sum()),
+          "max_gap": float(stats[:, 2].max()), "max_pres": float(stats[:, 4].max()),
+          "max_dres": float(stats[:, 5].max()),
+          "max_pcost_rel_closed_form": float(rel.max()),
+          "solve_s": solve_s, "solves_per_s": B_MAIN / solve_s,
+          "lockstep_iterations": n_iter,
+          "lockstep_iteration_ms": solve_s / n_iter * 1e3,
+          "iters_max": int(k.max()), "iters_mean": float(k.mean()),
+          "launches": launches, "peak_device_gb": peak_gb,
+          "cpu_recheck": {"instances": 8, "max_pcost_rel": float(prel.max()),
+                          "flags_equal": True,
+                          "iters_equal": bool((cpu[5] == k[:8]).all()),
+                          "cpu_iters": cpu[5].tolist(), "card_iters": k[:8].tolist()}})
+    return launches, fn, args, solve_s
+
+
+def phase_f32factor_single():
+    """Config 2 in the mixed-precision mode through solve.  The portfolio's
+    checks at this mode's tolerances: risk <= sigma_max (1 + 1e-4), budget
+    within 1e-4, w >= -1e-4 (feastol_inacc), and status and inaccurate flag
+    as the CPU re-solve (plain f32 kernels) says, pcost within 5e-5."""
+    from socp_tpu_torch import SolverConfig, Status, solve
+    from socp_tpu_torch.models.portfolio import portfolio, portfolio_risk
+
+    tf32_off()
+    cfg = SolverConfig(factor_dtype="float32")
+    prob, info = portfolio(SEED, n=500, k=20)
+    solve(prob, config=cfg, device="cuda")           # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = solve(prob, config=cfg, device="cuda")
+    times = [time.perf_counter() - t0]
+    launches = read_counts()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        solve(prob, config=cfg, device="cuda")
+        times.append(time.perf_counter() - t0)
+    solve_s = statistics.median(times)
+    none_of(launches, F64_KERNELS + ("chol_batched_f32", "tri_pair_batched_f32"),
+            "config 2 (f32 factor)")
+    n_iter = launches["chol_single_f32"] // 2 - 1
+    check(n_iter >= 1 and launches["chol_single_f32"] == 2 + 2 * n_iter
+          and launches["tri_pair_single_f32"] == 13 + 10 * n_iter,
+          f"f32factor_single launch ratios {launches}")
+    check(sol.iterations <= n_iter <= sol.iterations + 1,
+          f"f32factor_single: {n_iter} loop iterations vs {sol.iterations}")
+    check(sol.status == Status.OPTIMAL, f"f32factor_single: {sol}")
+    st = np.array([[sol.pcost, sol.dcost, sol.gap, sol.relgap, sol.pres, sol.dres]])
+    check(bool(relaxed_ok(st).all()), f"f32factor_single tolerances: {sol}")
+    w = sol.x
+    model = {"risk": portfolio_risk(info, w), "sigma_max": info["sigma_max"],
+             "budget_err": abs(float(np.sum(w)) - 1.0), "w_min": float(w.min())}
+    check(model["risk"] <= info["sigma_max"] * (1 + RELAXED_FEAS)
+          and model["budget_err"] <= RELAXED_FEAS and model["w_min"] >= -RELAXED_FEAS,
+          f"f32factor_single: portfolio checks {model}")
+    cpu = solve(prob, config=cfg, device="cpu")
+    rel = abs(cpu.pcost - sol.pcost) / max(1.0, abs(sol.pcost))
+    check(cpu.status == sol.status and cpu.inaccurate == sol.inaccurate
+          and rel <= RELAXED_GAP, f"f32factor_single: CPU {cpu} vs card {sol}")
+    emit({"phase": "f32factor_single",
+          "config": "portfolio(0, n=500, k=20), factor_dtype='float32'",
+          "status": sol.status_name, "inaccurate": sol.inaccurate,
+          "iterations": sol.iterations, "loop_iterations": n_iter,
+          "solve_ms": solve_s * 1e3, "ms_per_iteration": solve_s * 1e3 / n_iter,
+          "pcost": sol.pcost, "gap": sol.gap, "relgap": sol.relgap,
+          "pres": sol.pres, "dres": sol.dres, "launches": launches, **model,
+          "cpu_recheck": {"status": cpu.status_name, "inaccurate": cpu.inaccurate,
+                          "iterations": cpu.iterations, "pcost_rel": rel}})
+    return launches
+
+
+def phase_probes():
+    """The probes at their scripts' shapes and inputs: driven once with the
+    counts at 0 (the launches reported), then held to their plain versions
+    bit for bit and to the scripts' own checks, and timed."""
+    from socp_tpu_torch.ops import chol, probes
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(0)                   # run_chol's inputs
+    A = rng.normal(size=(128, 128)).astype(np.float32)
+    H1 = torch.as_tensor(A @ A.T + 128 * np.eye(128, dtype=np.float32), device=dev)
+    rng = np.random.default_rng(1)                   # run_eft's
+    a = torch.as_tensor(rng.normal(size=(8, 128)).astype(np.float32), device=dev)
+    b = torch.as_tensor((rng.normal(size=(8, 128)) * 1e-3).astype(np.float32),
+                        device=dev)
+    M = torch.arange(64 * 64, dtype=torch.float32, device=dev).reshape(64, 64)
+    rng = np.random.default_rng(0)                   # run_fwd's
+    A5 = rng.normal(size=(128, 128))
+    L5 = np.linalg.cholesky(A5 @ A5.T + 128 * np.eye(128)).astype(np.float32)
+    b5 = rng.normal(size=(128, 1)).astype(np.float32)
+    LT = torch.as_tensor(L5.T.copy(), device=dev)
+    bb = torch.as_tensor(b5, device=dev)
+
+    torch.cuda.synchronize()
+    reset_counts()
+    out = {"P1": chol.chol_single(H1), "P2": probes.eft(a, b),
+           "P3": probes.row_sum(M), "P4": probes.row_reverse(M),
+           "P5": probes.fwd_subst(LT, bb)}
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["chol_single_f32"] == 1
+          and all(v == 1 for v in probes.launches.values()),
+          f"probes: launches {launches}")
+
+    errs = {"P1": bit_equal(out["P1"], chol.chol_single_plain(H1), "P1"),
+            "P2": max(bit_equal(o, r, f"P2 {nm}") for nm, o, r in
+                      zip("sepq", out["P2"], probes.eft_plain(a, b))),
+            "P3": bit_equal(out["P3"], probes.row_sum_plain(M), "P3"),
+            "P4": bit_equal(out["P4"], probes.row_reverse_plain(M), "P4"),
+            "P5": bit_equal(out["P5"], probes.fwd_subst_plain(LT, bb), "P5")}
+    L = out["P1"].double()
+    Hd = H1.double()
+    recon = float((L @ L.T - Hd).abs().max() / Hd.abs().max())
+    check(recon < 1e-5, f"P1 reconstruction {recon}")
+    s, e, p, q = (o.double() for o in out["P2"])
+    a64, b64 = a.double(), b.double()
+    check(torch.equal(s + e, a64 + b64) and torch.equal(p + q, a64 * b64)
+          and bool((e != 0).any()) and bool((q != 0).any()),
+          "P2: two-sum / two-prod not exact")
+    check(torch.equal(out["P3"][0], M.sum(0)), "P3: row sum")
+    check(torch.equal(out["P4"], M.flip(0)), "P4: reversed rows")
+    exact = np.linalg.solve(L5.astype(np.float64), b5.astype(np.float64))
+    fwd_rel = float(np.abs(out["P5"].cpu().numpy() - exact).max() / np.abs(exact).max())
+    check(fwd_rel < 1e-4, f"P5: relative error {fwd_rel}")
+
+    n = 128
+    timing = {
+        "probe_eft": dict(
+            ms=cuda_ms(lambda: probes.eft(a, b)),
+            plain_ms=cuda_ms(lambda: probes.eft_plain(a, b)), library_ms=None,
+            bound=bound(6 * 4 * a.numel(), 23 * a.numel(), FP32_FLOPS_PER_S)),
+        "probe_read": dict(
+            ms=cuda_ms(lambda: probes.row_sum(M)),
+            plain_ms=cuda_ms(lambda: probes.row_sum_plain(M)),
+            library_ms=cuda_ms(lambda: M.sum(0)),
+            bound=bound(4 * (M.numel() + M.shape[1]), M.numel(), FP32_FLOPS_PER_S)),
+        "probe_write": dict(
+            ms=cuda_ms(lambda: probes.row_reverse(M)),
+            plain_ms=cuda_ms(lambda: probes.row_reverse_plain(M)),
+            library_ms=cuda_ms(lambda: M.flip(0)),
+            bound=bound(2 * 4 * M.numel(), 0, FP32_FLOPS_PER_S)),
+        "probe_fwd": dict(
+            ms=cuda_ms(lambda: probes.fwd_subst(LT, bb)),
+            plain_ms=cuda_ms(lambda: probes.fwd_subst_plain(LT, bb)),
+            library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
+                LT.mT, bb, upper=False)),
+            bound=bound(4 * (n * (n + 1) // 2 + 2 * n), n * n, FP32_FLOPS_PER_S)),
+        "P1_chol_single_f32": dict(
+            ms=cuda_ms(lambda: chol.chol_single(H1)),
+            plain_ms=cuda_ms(lambda: chol.chol_single_plain(H1), reps=5, warm=1),
+            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H1)),
+            bound=bound(4 * (n * (n + 1) // 2 + n * n), chol_flops(n),
+                        FP32_FLOPS_PER_S)),
+    }
+    emit({"phase": "probes", "bit_equal": True, "max_abs_err": errs,
+          "P1_reconstruction": recon, "P2_exact": True, "P5_rel_err": fwd_rel,
+          "launches": {k: v for k, v in launches.items() if v},
+          "timing": {k: {kk: vv for kk, vv in t.items() if kk != "bound"}
+                     for k, t in timing.items()}})
+    return launches, errs, timing
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -513,6 +910,11 @@ def main():
     phase_profile(lambda: fn(*args)[4].cpu(), solve_s, "config3")
     s_launches, run2, solve2_s = phase_single()
     phase_profile(run2, solve2_s, "config2")
+    f_errs, f_timing = phase_f32_kernels()
+    f_launches, f_fn, f_args, f_solve_s = phase_f32factor()
+    phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
+    fs_launches = phase_f32factor_single()
+    p_launches, p_errs, p_timing = phase_probes()
     errs.update(s_errs)
     meta = {
         "chol_batched": ("socp_tpu_torch/csrc/chol_batched.cu",
@@ -546,6 +948,41 @@ def main():
         else:
             row.update(numbers(timing[name]))
         rows.append(row)
+    # the f32 instances: one row per TPU kernel, at config 3's shape with
+    # the single instance's numbers (config 2's n = 500, P1's n = 128) beside;
+    # launches: the batched instance's in phase 9 plus the single's in 10
+    for name, base, replaces, also in (
+            ("chol_f32", "chol", "socp_tpu/ops/pallas_chol.py:68",
+             "scripts/pallas_probe.py:46 (P1: the single instance at n = 128)"),
+            ("tri_pair_f32", "tri_pair", "socp_tpu/ops/pallas_chol.py:105", None)):
+        t = f_timing[name]
+        b_name, s_name = f"{base}_batched_f32", f"{base}_single_f32"
+        row = {"name": name, "route": "cuda",
+               "source": f"socp_tpu_torch/csrc/{base}_batched.cu",
+               "replaces": replaces,
+               "launches": f_launches[b_name] + fs_launches[s_name],
+               "launches_by_phase": {"f32factor": {b_name: f_launches[b_name]},
+                                     "f32factor_single": {s_name: fs_launches[s_name]}},
+               "max_abs_err": max(f_errs[name]),
+               **numbers(t["batched"]), "at": {"B": B_MAIN, "n": N_MAIN + 2, "k": 1},
+               "single": {"source": f"socp_tpu_torch/csrc/{base}_single.cu",
+                          "n500": numbers(t["single_n500"]),
+                          "n128": numbers(t["single_n128"])}}
+        if also:
+            row["also_replaces"] = also
+            row["P1"] = {"launches": p_launches["chol_single_f32"],
+                         "max_abs_err": p_errs["P1"],
+                         **numbers(p_timing["P1_chol_single_f32"])}
+        rows.append(row)
+    for name, replaces, err in (
+            ("probe_eft", "scripts/pallas_probe.py:87", "P2"),
+            ("probe_read", "scripts/pallas_probe2.py:41", "P3"),
+            ("probe_write", "scripts/pallas_probe2.py:63", "P4"),
+            ("probe_fwd", "scripts/pallas_probe2.py:84", "P5")):
+        rows.append({"name": name, "route": "cuda",
+                     "source": "socp_tpu_torch/csrc/probes.cu",
+                     "replaces": replaces, "launches": p_launches[name],
+                     "max_abs_err": p_errs[err], **numbers(p_timing[name])})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

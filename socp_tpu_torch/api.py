@@ -12,9 +12,16 @@ back-solves go through the single-instance kernels (`ops.chol.cholesky` /
 `tri_pair_solve` route a batch of one there); the batched entry points run
 the batched kernels.
 
-Precision: everything is f64 (`torch.float64`), iterates, products,
-factors and solves alike.  TF32 plays no part: no f32 product is on this
-path, so `torch.backends.*.allow_tf32` cannot change a result.
+Precision: by default everything is f64 (`torch.float64`), iterates,
+products, factors and solves alike, and TF32 plays no part.  With
+`SolverConfig(factor_dtype="float32")` the iterates and the refinement
+residuals stay f64 while Ghat, H = Ghat'Ghat, the Cholesky factors and the
+back-solves are f32 (kkt/dense.py), as in the reference's mixed-precision
+mode; its solves end "optimal, inaccurate" near a 1e-6 gap, as the
+reference's do.  Its f32 products run on cuBLAS, so in this mode
+`torch.backends.cuda.matmul.allow_tf32 = True` (or a float32 matmul
+precision below "highest") WOULD change the result: the port sets neither
+and expects PyTorch's defaults (TF32 off).
 
 Device: every entry point takes `device`; `device=None` means `"cuda"`,
 and where CUDA is absent that raises instead of carrying on quietly on the
@@ -52,11 +59,12 @@ def _resolve_config(config: SolverConfig) -> SolverConfig:
     single and a batched solve alike (socp_tpu/api.py `_resolve_pallas`):
     no Gondzio corrector, so CPU runs stay iteration-comparable with the
     reference.  `use_pallas`, `invert_factor`, `native_dd` and
-    `factor_dtype="dd32"` all select the one f64 kernel path (config.py)."""
-    if config.factor_dtype not in (None, "dd32", "float64"):
+    `factor_dtype="dd32"` all select the f64 kernel path (config.py);
+    `factor_dtype="float32"` selects the f32 factor and back-solves."""
+    if config.factor_dtype not in driver.FACTOR_DTYPES:
         raise NotImplementedError(
-            f"factor_dtype={config.factor_dtype!r}: the port factors in f64; "
-            "a lower-precision factor is a later slice (ROADMAP.md queue 1)"
+            f"factor_dtype={config.factor_dtype!r}: the port factors in "
+            f"one of {sorted(map(str, driver.FACTOR_DTYPES))} (None: f64)"
         )
     if config.gondzio_correctors is None:
         config = dataclasses.replace(config, gondzio_correctors=0)

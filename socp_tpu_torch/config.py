@@ -1,20 +1,25 @@
 """Solver configuration: the fields and defaults of `socp_tpu/config.py`.
 
 The port keeps every field so that a config written for the reference is a
-config for the port.  Its runtime is f64 end to end (the card has native
-FP64), so the fields that choose among the reference's TPU precision and
-kernel routes all map onto the port's single path — f64 iterates, the
-f64 Cholesky kernels and the f64 triangular-pair kernels (single-instance
-for `solve`, batched for the batched entry points):
+config for the port.  Its carries are f64 (the card has native FP64), so
+the fields that choose among the reference's TPU precision and kernel
+routes map onto two paths: f64 iterates with either the f64 Cholesky and
+triangular-pair kernels or their f32 instances (single-instance for
+`solve`, batched for the batched entry points):
 
+  * `factor_dtype=None` or `"float64"`              -> the f64 path;
   * `native_dd` (dd32 everywhere on the TPU)        -> the f64 path;
   * `factor_dtype="dd32"` (dd32 factor)             -> the f64 path;
-  * `use_pallas` (VMEM-resident Pallas kernels)     -> the f64 kernels, always;
-  * `invert_factor` (explicit triangular inverse)   -> the f64 kernels, always;
-  * `refine_in_f64`                                  -> no-op (already f64).
+  * `factor_dtype="float32"`                         -> the f32 factor and
+    back-solves under f64 refinement (kkt/dense.py), the reference's
+    mixed-precision mode; it ends "optimal, inaccurate" near a 1e-6 gap,
+    as the reference does;
+  * `use_pallas` (VMEM-resident Pallas kernels)     -> the kernels, always;
+  * `invert_factor` (explicit triangular inverse)   -> the kernels, always;
+  * `refine_in_f64`                                  -> no-op (the carries,
+    and so the residuals, are already f64).
 
-`factor_dtype="float32"` (the f32 factor under f64 refinement) is a later
-slice of the port and raises in `api`.  `ring_schur` belongs to the
+Any other `factor_dtype` raises in `api`.  `ring_schur` belongs to the
 block-Schur path, which this package does not have yet.
 """
 

@@ -1,30 +1,56 @@
-// chol_column.cuh -- the right-looking column loop of a lower f64 Cholesky
-// factor with the whole n x n matrix in one block's shared memory.  Shared
-// by chol_batched.cu (one instance per block) and chol_single.cu (n <= 169);
-// their notes say what bounds it and why it is written this way.
+// chol_column.cuh -- the right-looking column loop of a lower Cholesky
+// factor (f64 or f32) with the whole n x n matrix in one block's shared
+// memory, and the correctly rounded scalar operations the kernels share.
+// Used by chol_batched.cu (one instance per block) and chol_single.cu (the
+// one-block regime); their notes say what bounds it and why it is written
+// this way.
 //
 // Step j: col[i] = M[i][j] / sqrt(M[j][j]) for i >= j, then the rank-1
 // update M[i][k] -= col[i] col[k] of the trailing lower triangle, written
-// with __dmul_rn / __dsub_rn so that it is never contracted into an FMA and
-// rounds as the plain PyTorch version (ops/chol.py) does.
+// with mul_rn / sub_rn (__dmul_rn / __dsub_rn, __fmul_rn / __fsub_rn) so
+// that it is never contracted into an FMA and rounds as the plain PyTorch
+// version (ops/chol.py) does.  sqrt_rn and IEEE `/` are correctly rounded
+// in both types: the build has no --use_fast_math.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
+__device__ __forceinline__ double mul_rn(double a, double b) {
+  return __dmul_rn(a, b);
+}
+__device__ __forceinline__ float mul_rn(float a, float b) {
+  return __fmul_rn(a, b);
+}
+__device__ __forceinline__ double sub_rn(double a, double b) {
+  return __dsub_rn(a, b);
+}
+__device__ __forceinline__ float sub_rn(float a, float b) {
+  return __fsub_rn(a, b);
+}
+__device__ __forceinline__ double sqrt_rn(double a) { return sqrt(a); }
+__device__ __forceinline__ float sqrt_rn(float a) { return sqrtf(a); }
+
+// Largest n whose n x n matrix plus one column fits one block's shared
+// memory on Hopper, (n * n + n) * sizeof(T) <= 232,448 bytes.
+template <typename T>
+constexpr int one_block_max_n() {
+  return sizeof(T) == 8 ? 169 : 240;
+}
+
 // H, L: one n x n row-major matrix in device memory (L gets zeros above the
-// diagonal); M: n * n doubles and col: n doubles of shared memory.  Every
-// thread of the block calls it.
-__device__ __forceinline__ void chol_column_loop(const double* __restrict__ H,
-                                                 double* __restrict__ L,
-                                                 double* M, double* col,
-                                                 int n) {
+// diagonal); M: n * n and col: n entries of shared memory.  Every thread of
+// the block calls it.
+template <typename T>
+__device__ __forceinline__ void chol_column_loop(const T* __restrict__ H,
+                                                 T* __restrict__ L, T* M,
+                                                 T* col, int n) {
   const int nn = n * n;
   for (int e = threadIdx.x; e < nn; e += blockDim.x) M[e] = H[e];
   __syncthreads();
 
   for (int j = 0; j < n; ++j) {
-    const double d = sqrt(M[j * n + j]);
+    const T d = sqrt_rn(M[j * n + j]);
     for (int i = j + threadIdx.x; i < n; i += blockDim.x) {
       col[i] = M[i * n + j] / d;
     }
@@ -39,7 +65,7 @@ __device__ __forceinline__ void chol_column_loop(const double* __restrict__ H,
       if (c <= r) {
         const int i = j + 1 + r;
         const int k = j + 1 + c;
-        M[i * n + k] = __dsub_rn(M[i * n + k], __dmul_rn(col[i], col[k]));
+        M[i * n + k] = sub_rn(M[i * n + k], mul_rn(col[i], col[k]));
       }
     }
     __syncthreads();
@@ -48,6 +74,6 @@ __device__ __forceinline__ void chol_column_loop(const double* __restrict__ H,
   for (int e = threadIdx.x; e < nn; e += blockDim.x) {
     const int r = e / n;
     const int c = e - r * n;
-    L[e] = c <= r ? M[e] : 0.0;
+    L[e] = c <= r ? M[e] : T(0);
   }
 }

@@ -1,22 +1,28 @@
-// tri_pair_single.cu -- (L L')^-1 B in f64 for ONE (n, n) lower factor and
-// an (n, k) right-hand side: forward substitution on L, then backward
-// substitution on L' read from the same L.
+// tri_pair_single.cu -- (L L')^-1 B in f64 or f32 for ONE (n, n) lower
+// factor and an (n, k) right-hand side: forward substitution on L, then
+// backward substitution on L' read from the same L.
 //
-// Replaces socp_tpu/ops/pallas_chol.py:_tri_pair_kernel (entry point
-// tri_pair_solve), the single-instance dd32 pair solve of the reference's
-// single solve, which keeps L, its transpose LT and the rhs in VMEM.  It
-// computes the same function in f64.  The TPU kernel took LT as a second
-// operand so that both passes read rows along the lane axis; here that
-// operand is gone (see the forward pass below).
+// tri_pair_single_f64 replaces socp_tpu/ops/pallas_chol.py:_tri_pair_kernel
+// (entry point tri_pair_solve), the single-instance dd32 pair solve of the
+// reference's single solve, which keeps L, its transpose LT and the rhs in
+// VMEM; it computes the same function in f64.  tri_pair_single_f32 replaces
+// pallas_chol.py:_f32_tri_kernel (entry point tri_solve_f32): the same
+// forward-then-backward pair solve of one instance in f32, the back-solve
+// of the solver's mixed-precision mode (factor_dtype="float32") on the
+// single path.  Both TPU kernels took LT as a second operand so that both
+// passes read rows along the lane axis; here that operand is gone (see the
+// forward pass below).
 //
 // What bounds it on this card.  It must read the lower triangle of L
-// (4 n^2 bytes), 8 n k of rhs and write 8 n k, and does 2 n^2 k FP64 flops:
-// at n = 500, k = 1 that is 1 MB and 0.5 MFLOP, a quarter flop a byte, so
-// the least time is the bytes' time, 0.3 us.  This simple design is far
-// from that: 2 n dependent substitution steps, each ending in a block
+// (n^2 / 2 entries), n k of rhs and write n k, and does 2 n^2 k flops: at
+// n = 500, k = 1 in f64 that is 1 MB and 0.5 MFLOP, a quarter flop a byte,
+// so the least time is the bytes' time, 0.3 us.  In f32 the bytes halve
+// (4 B an entry over 3.35 TB/s) and the flops run at 67 TFLOP/s FP32
+// (non-tensor; H100 SXM data sheet): bytes again.  This simple design is
+// far from that: 2 n dependent substitution steps, each ending in a block
 // barrier, set its time.
 //
-// What the design does about it.  At n = 500 L is 2 MB: it does not fit
+// What the design does about it.  At n = 500 L is 2 MB in f64: it does not fit
 // shared memory, but it fits the 50 MB L2, so one block streams L's entries
 // from device memory and keeps only the pivots and the rhs columns it is
 // working on in shared memory (kCols columns at a time; more columns run
@@ -29,8 +35,8 @@
 //             threads read neighbouring entries of row j: coalesced.
 // Both passes keep the plain version's axpy order (ops/chol.py) rather
 // than a dot-product form, because a different summation order would not
-// round as the plain version does: with __dmul_rn / __dsub_rn (never
-// contracted into an FMA) every value is rounded as the plain version
+// round as the plain version does: with mul_rn / sub_rn (chol_column.cuh;
+// never contracted into an FMA) every value is rounded as the plain version
 // rounds it and the two agree bit for bit on the card.  Each step has ONE
 // barrier: every thread computes x_j / L_jj itself and no thread writes
 // row j while another reads it; the division of each row by its pivot
@@ -39,18 +45,20 @@
 
 #include <cuda_runtime.h>
 
+#include "chol_column.cuh"
+
 namespace {
 
 constexpr int kMaxThreads = 1024;
 constexpr int kCols = 8;  // rhs columns held per pass
 
+template <typename T>
 __global__ void __launch_bounds__(kMaxThreads)
-tri_pair_single_kernel(const double* __restrict__ L,
-                       const double* __restrict__ B, double* __restrict__ X,
-                       int n, int k, int kc) {
-  extern __shared__ double smem[];
-  double* diag = smem;    // n pivots L_ii
-  double* xs = smem + n;  // n x w columns of the current pass, row-major
+tri_pair_single_kernel(const T* __restrict__ L, const T* __restrict__ B,
+                       T* __restrict__ X, int n, int k, int kc) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  T* diag = reinterpret_cast<T*>(smem_raw);  // n pivots L_ii
+  T* xs = diag + n;  // n x w columns of the current pass, row-major
 
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     diag[i] = L[static_cast<size_t>(i) * n + i];
@@ -68,17 +76,17 @@ tri_pair_single_kernel(const double* __restrict__ L,
 
     // forward: L y = b
     for (int j = 0; j < n - 1; ++j) {
-      const double ljj = diag[j];
-      double q[kCols];
+      const T ljj = diag[j];
+      T q[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) q[c] = c < w ? xs[j * w + c] / ljj : 0.0;
+      for (int c = 0; c < kCols; ++c) q[c] = c < w ? xs[j * w + c] / ljj : T(0);
       for (int i = threadIdx.x; i < n; i += blockDim.x) {
         if (i > j) {
-          const double lij = L[static_cast<size_t>(i) * n + j];
+          const T lij = L[static_cast<size_t>(i) * n + j];
 #pragma unroll
           for (int c = 0; c < kCols; ++c) {
             if (c < w) {
-              xs[i * w + c] = __dsub_rn(xs[i * w + c], __dmul_rn(lij, q[c]));
+              xs[i * w + c] = sub_rn(xs[i * w + c], mul_rn(lij, q[c]));
             }
           }
         }
@@ -92,17 +100,17 @@ tri_pair_single_kernel(const double* __restrict__ L,
 
     // backward: L' x = y
     for (int j = n - 1; j > 0; --j) {
-      const double ljj = diag[j];
-      double q[kCols];
+      const T ljj = diag[j];
+      T q[kCols];
 #pragma unroll
-      for (int c = 0; c < kCols; ++c) q[c] = c < w ? xs[j * w + c] / ljj : 0.0;
-      const double* row = L + static_cast<size_t>(j) * n;
+      for (int c = 0; c < kCols; ++c) q[c] = c < w ? xs[j * w + c] / ljj : T(0);
+      const T* row = L + static_cast<size_t>(j) * n;
       for (int i = threadIdx.x; i < j; i += blockDim.x) {
-        const double lji = row[i];
+        const T lji = row[i];
 #pragma unroll
         for (int c = 0; c < kCols; ++c) {
           if (c < w) {
-            xs[i * w + c] = __dsub_rn(xs[i * w + c], __dmul_rn(lji, q[c]));
+            xs[i * w + c] = sub_rn(xs[i * w + c], mul_rn(lji, q[c]));
           }
         }
       }
@@ -116,17 +124,12 @@ tri_pair_single_kernel(const double* __restrict__ L,
   }
 }
 
-}  // namespace
-
 // Largest shared-memory allocation of one block on Hopper (bytes).
 constexpr size_t kSmemLimit = 232448;
 
-// L: (n, n) lower factor; B, X: (n, k); all row-major f64 on the device.
-// Returns the CUDA error code of the launch (0 on success);
-// cudaErrorInvalidValue when not even one rhs column fits shared memory.
-extern "C" int tri_pair_single_f64(const double* L, const double* B,
-                                   double* X, int n, int k, void* stream) {
-  const size_t per_col = static_cast<size_t>(n) * sizeof(double);
+template <typename T>
+int launch(const T* L, const T* B, T* X, int n, int k, void* stream) {
+  const size_t per_col = static_cast<size_t>(n) * sizeof(T);
   const size_t room = kSmemLimit / per_col;  // n-vectors that fit
   if (room < 2) return static_cast<int>(cudaErrorInvalidValue);
   int kc = static_cast<int>(room - 1);
@@ -134,12 +137,28 @@ extern "C" int tri_pair_single_f64(const double* L, const double* B,
   if (kc > k) kc = k;
   const size_t smem = per_col * (1 + kc);
   cudaError_t err = cudaFuncSetAttribute(
-      tri_pair_single_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      tri_pair_single_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   int threads = (n + 31) / 32 * 32;
   if (threads > kMaxThreads) threads = kMaxThreads;
-  tri_pair_single_kernel<<<1, threads, smem, static_cast<cudaStream_t>(
-                                                 stream)>>>(L, B, X, n, k, kc);
+  tri_pair_single_kernel<T><<<1, threads, smem, static_cast<cudaStream_t>(
+                                                    stream)>>>(L, B, X, n, k,
+                                                               kc);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+// L: (n, n) lower factor; B, X: (n, k); all row-major on the device.
+// Returns the CUDA error code of the launch (0 on success);
+// cudaErrorInvalidValue when not even one rhs column fits shared memory.
+extern "C" int tri_pair_single_f64(const double* L, const double* B,
+                                   double* X, int n, int k, void* stream) {
+  return launch(L, B, X, n, k, stream);
+}
+
+extern "C" int tri_pair_single_f32(const float* L, const float* B, float* X,
+                                   int n, int k, void* stream) {
+  return launch(L, B, X, n, k, stream);
 }

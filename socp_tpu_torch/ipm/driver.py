@@ -19,7 +19,9 @@ and is discarded by the select.  Per-lane conditional arithmetic is
 
 Kernel launches per body (p = 0): one Cholesky and three triangular-pair
 solves (affine solve unrefined, combined solve + one refinement solve);
-the W = I initialization adds one Cholesky and four pair solves.
+the W = I initialization adds one Cholesky and four pair solves.  They are
+the f64 kernels, or the f32 ones under `factor_dtype="float32"` (the f32
+factor under f64 refinement, kkt/dense.py); the carries are f64 either way.
 """
 
 from __future__ import annotations
@@ -34,6 +36,12 @@ from socp_tpu_torch.config import SolverConfig
 from socp_tpu_torch.kkt import dense
 from socp_tpu_torch.kkt.dense import _dot, _mtv, _mv
 from socp_tpu_torch.solution import Status
+
+# SolverConfig.factor_dtype -> the dtype of the KKT factor and back-solves.
+# "dd32" (the reference's double-word f32 factor) and "float64" map onto
+# the f64 path, as None does (config.py).
+FACTOR_DTYPES = {None: torch.float64, "dd32": torch.float64,
+                 "float64": torch.float64, "float32": torch.float32}
 
 
 class IPMState(NamedTuple):
@@ -89,6 +97,7 @@ def solve_core(
     p = A.shape[1]
     m = layout.m_pad
     dtype, device = c.dtype, c.device
+    fdt = FACTOR_DTYPES[cfg.factor_dtype]
     nu = float(layout.degree)
     e = cops.identity(layout, B, dtype, device)
     Pmat = P if has_P else None
@@ -149,7 +158,8 @@ def solve_core(
         z0 = zw + torch.clamp_min(margin - cops.lambda_min(layout, zw), 0.0)[:, None] * e
     else:
         sc0 = cops.identity_scaling(layout, B, dtype, device)
-        kkt0 = dense.factor(layout, sc0, Paug, A, G, cfg.delta_reg)
+        kkt0 = dense.factor(layout, sc0, Paug, A, G, cfg.delta_reg,
+                            factor_dtype=fdt)
         x0, _, z0, _ = refined(kkt0, c.new_zeros((B, n)), b, h)
         shat = -z0
         ap = -cops.lambda_min(layout, shat)
@@ -204,7 +214,8 @@ def solve_core(
 
         # ---- NT scaling + KKT factor (the hot block)
         scaling = cops.nt_scale(layout, s, z)
-        kkt = dense.factor(layout, scaling, Paug, A, G, cfg.delta_reg)
+        kkt = dense.factor(layout, scaling, Paug, A, G, cfg.delta_reg,
+                           factor_dtype=fdt)
         lam = scaling.lam
 
         def newton(d_s, steps=None):

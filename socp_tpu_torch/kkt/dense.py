@@ -19,7 +19,19 @@ triangular-pair router (`socp_tpu_torch.ops.chol.cholesky` /
 `tri_pair_solve`): a batch of one instance (the single solve) runs the
 single-instance kernels, a larger batch the batched ones.  H's product
 Ghat'Ghat is a plain batched matmul, as the reference leaves it to XLA.
-All arithmetic is f64.
+
+Precision.  By default all arithmetic is f64.  `factor(...,
+factor_dtype=torch.float32)` is the reference's mixed-precision mode
+(`SolverConfig(factor_dtype="float32")`, the dsgesv scheme): Ghat = W^-1 G
+is formed in f64 and cast to f32, H = Ghat'Ghat + Paug, the equilibrated
+Cholesky factors (whose delta floor becomes 32 eps_f32, about 3.8e-6) and
+every back-solve run in f32, through the f32 kernels; `solve` casts its
+right-hand sides to f32, and `solve_refined` casts each solve's result back
+to the carry dtype (f64) before it adds it, and keeps the refinement
+residual, with the f64 `scaling`, in f64.  The f32 products (Ghat'Ghat,
+Ghat' bhz, Ghat dx) are cuBLAS SGEMM / SGEMV on the card: they are in full
+f32 only while `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's
+default), which this module does not change.
 """
 
 from __future__ import annotations
@@ -75,10 +87,25 @@ def _eq_chol(M: torch.Tensor, delta: float) -> EqChol:
 
 
 class DenseKKT(NamedTuple):
+    """Factored condensed system.  L_H, L_S, Ghat and scaling_lo are in the
+    factor dtype (the back-solves); scaling keeps the carry dtype for the
+    refinement residual's W'W products.  In f64 mode scaling_lo holds
+    scaling's tensors."""
+
     L_H: EqChol               # equilibrated Cholesky of H (B, n, n)
     L_S: EqChol               # equilibrated Cholesky of the Schur complement
     Ghat: torch.Tensor        # (B, m_pad, n) = W^-1 G
     scaling: cops.Scaling
+    scaling_lo: cops.Scaling
+
+
+def _cast_scaling(sc: cops.Scaling, dtype: torch.dtype) -> cops.Scaling:
+    return cops.Scaling(
+        w_orth=sc.w_orth.to(dtype),
+        etas=tuple(e.to(dtype) for e in sc.etas),
+        vs=tuple(v.to(dtype) for v in sc.vs),
+        lam=sc.lam.to(dtype),
+    )
 
 
 def factor(
@@ -88,24 +115,31 @@ def factor(
     A: torch.Tensor,
     G: torch.Tensor,
     delta: float = 0.0,
+    factor_dtype: torch.dtype | None = None,
 ) -> DenseKKT:
     """Assemble and factor; `Paug` already holds the rho A'A augmentation.
+    `factor_dtype` (None: G's dtype) is the dtype of the factors and the
+    back-solves (module doc).
 
     Launches: one Cholesky of H; with p > 0 also one tri-pair solve with
     k = p (H^-1 A') and one Cholesky of the p x p Schur complement."""
     B, p, _ = A.shape
-    Ghat = cops.scale_rows_Winv(layout, scaling, G)
+    fdt = factor_dtype or G.dtype
+    # .to() of a tensor already in fdt is the tensor itself: no copy in f64
+    Ghat = cops.scale_rows_Winv(layout, scaling, G).to(fdt)
+    A = A.to(fdt)
     H = Ghat.transpose(1, 2) @ Ghat
     if Paug is not None:
-        H = H + Paug
+        H = H + Paug.to(fdt)
     L_H = _eq_chol(H, delta)
     if p:
         HinvAT = L_H.solve(A.transpose(1, 2))
         S = A @ HinvAT
         L_S = _eq_chol(S, delta)
     else:
-        L_S = EqChol(L=G.new_zeros((B, 0, 0)), d=G.new_zeros((B, 0)))
-    return DenseKKT(L_H=L_H, L_S=L_S, Ghat=Ghat, scaling=scaling)
+        L_S = EqChol(L=Ghat.new_zeros((B, 0, 0)), d=Ghat.new_zeros((B, 0)))
+    return DenseKKT(L_H=L_H, L_S=L_S, Ghat=Ghat, scaling=scaling,
+                    scaling_lo=_cast_scaling(scaling, fdt))
 
 
 def solve(
@@ -117,11 +151,14 @@ def solve(
     bz: torch.Tensor,
     aug_rho: float = 0.0,
 ):
-    """One condensed back-solve: 1 tri-pair launch for p = 0, 3 for p > 0.
-    The augmented system's multiplier relates to the true dy by
-    dy = y_hat + rho*by (exact)."""
+    """One condensed back-solve in the factor dtype (the right-hand sides
+    and A are cast to it, as the reference does): 1 tri-pair launch for
+    p = 0, 3 for p > 0.  The augmented system's multiplier relates to the
+    true dy by dy = y_hat + rho*by (exact)."""
     p = A.shape[1]
-    bhz = cops.apply_Winv(layout, kkt.scaling, bz)
+    fdt = kkt.Ghat.dtype
+    bx, by, bz, A = (t.to(fdt) for t in (bx, by, bz, A))
+    bhz = cops.apply_Winv(layout, kkt.scaling_lo, bz)
     btx = bx + _mtv(kkt.Ghat, bhz)
     if p:
         t1 = kkt.L_H.solve(btx)
@@ -131,7 +168,7 @@ def solve(
     else:
         dy = by  # empty
         dx = kkt.L_H.solve(btx)
-    dz = cops.apply_Winv(layout, kkt.scaling, _mv(kkt.Ghat, dx) - bhz)
+    dz = cops.apply_Winv(layout, kkt.scaling_lo, _mv(kkt.Ghat, dx) - bhz)
     return dx, dy, dz
 
 
@@ -150,8 +187,16 @@ def solve_refined(
     """KKT solve + iterative refinement on the full 3x3 residual.  `P` is
     the ORIGINAL quadratic term (None for a pure SOCP).  Returns
     (dx, dy, dz, quality) with quality the (B,) relative residual before
-    the last correction (0 without refinement)."""
-    dx, dy, dz = solve(layout, kkt, A, bx, by, bz, aug_rho=aug_rho)
+    the last correction (0 without refinement).  The solves' results are
+    cast to the carry dtype (bx's) before they are added; the residual is
+    computed in the carry dtype."""
+    carry = bx.dtype
+
+    def solve_carry(rx, ry, rz):
+        out = solve(layout, kkt, A, rx, ry, rz, aug_rho=aug_rho)
+        return tuple(o.to(carry) for o in out)
+
+    dx, dy, dz = solve_carry(bx, by, bz)
     quality = bx.new_zeros(bx.shape[0])
     if refine_steps <= 0:
         return dx, dy, dz, quality
@@ -165,7 +210,7 @@ def solve_refined(
         WWdz = cops.apply_W(layout, sc, cops.apply_W(layout, sc, dz))
         rz = bz - (_mv(G, dx) - WWdz)
         quality = torch.sqrt(_dot(rx, rx) + _dot(ry, ry) + _dot(rz, rz)) / rhs_norm
-        ex, ey, ez = solve(layout, kkt, A, rx, ry, rz, aug_rho=aug_rho)
+        ex, ey, ez = solve_carry(rx, ry, rz)
         dx = dx + ex
         dy = dy + ey
         dz = dz + ez

@@ -1,12 +1,13 @@
 """Build and load the port's CUDA kernels.
 
-Each `csrc/<name>.cu` is compiled by `nvcc` for `sm_90a` into its own shared
-library with a plain C interface (no PyTorch headers, so a build takes
-seconds) and loaded with `ctypes`.  Builds go to `socp_tpu_torch/_build/`
-(listed in .gitignore), keyed by a hash of the source, the shared headers
-(`csrc/*.cuh`) and the flags, at first use; `build()` compiles every
-missing library with one `nvcc` per source, all started together.  Nothing
-here runs at import time.
+Each source `csrc/<source>.cu` is compiled by `nvcc` for `sm_90a` into its
+own shared library with a plain C interface (no PyTorch headers, so a build
+takes seconds) and loaded with `ctypes`; one library exports several entry
+points (the f64 and f32 instances of a kernel, or the probes).  Builds go
+to `socp_tpu_torch/_build/` (listed in .gitignore), keyed by a hash of the
+source, the shared headers (`csrc/*.cuh`) and the flags, at first use;
+`build()` compiles every missing library with one `nvcc` per source, all
+started together.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -29,24 +30,35 @@ NVCC_FLAGS = (
 )
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
-# kernel name -> (C entry point, argtypes); every entry point returns the
-# launch's cudaError_t as an int.
-KERNELS = {
-    "chol_batched": ("chol_batched_f64", (_P, _P, _I, _I, _P)),
-    "tri_pair_batched": ("tri_pair_batched_f64", (_P, _P, _P, _I, _I, _I, _P)),
-    "chol_single": ("chol_single_f64", (_P, _P, _I, _P)),
-    "tri_pair_single": ("tri_pair_single_f64", (_P, _P, _P, _I, _I, _P)),
+_SIGNATURES = {
+    "chol_batched": (_P, _P, _I, _I, _P),
+    "tri_pair_batched": (_P, _P, _P, _I, _I, _I, _P),
+    "chol_single": (_P, _P, _I, _P),
+    "tri_pair_single": (_P, _P, _P, _I, _I, _P),
 }
+# entry point (the C symbol) -> (source name, argtypes); every entry point
+# returns the launch's cudaError_t as an int.
+KERNELS = {
+    f"{name}_{t}": (name, args)
+    for name, args in _SIGNATURES.items() for t in ("f64", "f32")
+}
+KERNELS.update({
+    "probe_eft": ("probes", (_P, _P, _P, _P, _P, _P, _I, _P)),
+    "probe_read": ("probes", (_P, _P, _I, _I, _P)),
+    "probe_write": ("probes", (_P, _P, _I, _I, _P)),
+    "probe_fwd": ("probes", (_P, _P, _P, _I, _I, _P)),
+})
+SOURCES = tuple(dict.fromkeys(src for src, _ in KERNELS.values()))
 
-_loaded: dict = {}   # kernel name -> loaded C function
+_loaded: dict = {}   # entry point -> loaded C function
 
 
-def _target(name: str) -> tuple[Path, Path]:
-    src = CSRC / f"{name}.cu"
+def _target(source: str) -> tuple[Path, Path]:
+    src = CSRC / f"{source}.cu"
     key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
     for header in sorted(CSRC.glob("*.cuh")):    # the sources' shared code
         key.update(header.read_bytes())
-    return src, BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
+    return src, BUILD_DIR / f"{source}-{key.hexdigest()[:16]}.so"
 
 
 def _nvcc() -> str:
@@ -62,12 +74,12 @@ def _nvcc() -> str:
     return path
 
 
-def build(names=tuple(KERNELS)) -> tuple[float, str]:
-    """Compile the named kernels that are not built yet.  Returns the
+def build(sources=SOURCES) -> tuple[float, str]:
+    """Compile the named sources that are not built yet.  Returns the
     seconds taken and nvcc's output (ptxas register / shared-memory
     report); raises with the output if any compile fails."""
     t0 = time.perf_counter()
-    todo = [(name, *_target(name)) for name in names]
+    todo = [(name, *_target(name)) for name in sources]
     todo = [t for t in todo if not t[2].exists()]
     if not todo:
         return 0.0, ""
@@ -96,14 +108,14 @@ def build(names=tuple(KERNELS)) -> tuple[float, str]:
 
 
 def kernel(name: str):
-    """The C entry point of kernel `name`, built and loaded at first use."""
+    """The C entry point `name`, its source built and loaded at first use."""
     fn = _loaded.get(name)
     if fn is None:
-        _, out = _target(name)
+        source, argtypes = KERNELS[name]
+        _, out = _target(source)
         if not out.exists():
-            build((name,))
-        symbol, argtypes = KERNELS[name]
-        fn = getattr(ctypes.CDLL(str(out)), symbol)
+            build((source,))
+        fn = getattr(ctypes.CDLL(str(out)), name)
         fn.argtypes = list(argtypes)
         fn.restype = ctypes.c_int
         _loaded[name] = fn

@@ -1,42 +1,72 @@
-"""f64 Cholesky and triangular-pair solve: the port of the four dd Pallas
-kernels of `socp_tpu/ops/pallas_chol.py` that the solver runs.
+"""Cholesky and triangular-pair solve in f64 and f32: the port of the
+Pallas kernels of `socp_tpu/ops/pallas_chol.py` that the solver runs.
 
   chol_batched(H)          lower L with L L' = H for a (B, n, n) batch,
-                           zeros above the diagonal (port of
-                           `_dd_chol_batch_kernel`)
+                           zeros above the diagonal (f64: port of
+                           `_dd_chol_batch_kernel`; f32: of `_f32_chol_kernel`
+                           under jax.vmap)
   tri_pair_batched(L, B)   (L L')^-1 B, forward then backward substitution,
-                           for a (B, n, n) factor batch (port of
-                           `_tri_pair_batch_kernel`, without its LT operand)
-  chol_single(H)           the same for ONE (n, n) matrix, any n (port of
-                           `_dd_chol_kernel`)
+                           for a (B, n, n) factor batch (f64: port of
+                           `_tri_pair_batch_kernel`; f32: of `_f32_tri_kernel`
+                           under jax.vmap; both without the LT operand)
+  chol_single(H)           the same for ONE (n, n) matrix, any n (f64: port
+                           of `_dd_chol_kernel`; f32: of `_f32_chol_kernel`)
   tri_pair_single(L, B)    the same for one (n, n) factor and an (n, k) rhs
-                           (port of `_tri_pair_kernel`)
+                           (f64: port of `_tri_pair_kernel`; f32: of
+                           `_f32_tri_kernel`)
   cholesky(H), tri_pair_solve(L, B)
                            the routers, counterparts of the reference's
                            `cholesky_dd_v` / `tri_pair_solve_v`: a batch of
                            one instance goes to the single kernels, a larger
                            batch to the batched ones.
 
+Every wrapper takes float64 or float32 and launches the entry point of its
+input's dtype (`csrc/*.cu` export `*_f64` and `*_f32`); a factor and a rhs
+of different dtypes raise.  The f32 entries carry the factor and the
+back-solves of the solver's mixed-precision mode (`factor_dtype="float32"`,
+kkt/dense.py).
+
 Each wrapper takes its plain PyTorch version only for a tensor on the CPU;
 for a CUDA tensor it launches the hand-written kernel from
 `socp_tpu_torch/csrc/` or raises.  The plain versions repeat the kernels'
 arithmetic step for step (the same right-looking column loop and
 substitution loops), so a matrix that is not positive definite gives NaN
-in both, never an exception.  The `*_launches` counters count kernel-wrapper
-launches (never plain calls), so a run can show that it went through the
-kernels.  One launch of `chol_single` above n = 169 is one call of its C
-entry point, which enqueues 2 ceil(n / 32) CUDA kernels (csrc/chol_single.cu).
+in both, never an exception.  They are dtype-generic: each step is one
+elementwise sqrt, division, multiplication or subtraction, which PyTorch
+rounds correctly in f32 as in f64 on the CPU and on the card (eager ops are
+never fused into an FMA, and the card's kernels use `__fmul_rn` /
+`__fsub_rn` and IEEE sqrt and division), so the kernels agree with them bit
+for bit in both types.  The `*_launches` counters count kernel-wrapper
+launches (never plain calls), the f64 kernels' under the plain names and
+the f32 kernels' under `*_launches_f32`, so a run can show which kernels
+it went through.  One launch of `chol_single` above n = 169 (f64) or 240
+(f32) is one call of its C entry point, which enqueues 2 ceil(n / 32) CUDA
+kernels (csrc/chol_single.cu).
 """
 
 from __future__ import annotations
 
 import torch
 
-# kernel launches since the last reset (a caller may set them to 0)
+# kernel launches since the last reset (a caller may set them to 0): the
+# f64 kernels' under the plain names, the f32 kernels' under *_f32
 chol_launches = 0
 tri_pair_launches = 0
 chol_single_launches = 0
 tri_pair_single_launches = 0
+chol_launches_f32 = 0
+tri_pair_launches_f32 = 0
+chol_single_launches_f32 = 0
+tri_pair_single_launches_f32 = 0
+
+# kernel -> its f64 counter (the f32 one adds "_f32")
+COUNTERS = {"chol_batched": "chol_launches",
+            "tri_pair_batched": "tri_pair_launches",
+            "chol_single": "chol_single_launches",
+            "tri_pair_single": "tri_pair_single_launches"}
+
+# dtype -> suffix of the C entry point
+_SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
 # shared memory one thread block can use on Hopper (bytes)
 SMEM_LIMIT = 232_448
@@ -72,7 +102,8 @@ def tri_pair_batched_plain(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def chol_single_plain(H: torch.Tensor) -> torch.Tensor:
     """The column loop of `chol_batched_plain` on one (n, n) matrix.  It is
-    also the plain version of the kernel's blocked regime (n > 169): the
+    also the plain version of the kernel's blocked regime (n > 169 in f64,
+    n > 240 in f32): the
     blocked order applies to every entry the same rounded operations in the
     same order (csrc/chol_single.cu)."""
     return chol_batched_plain(H[None])[0]
@@ -84,8 +115,8 @@ def tri_pair_single_plain(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 
 def _check(name: str, t: torch.Tensor, ndim: int = 3):
-    if t.dtype != torch.float64:
-        raise TypeError(f"{name}: expected float64, got {t.dtype}")
+    if t.dtype not in _SUFFIX:
+        raise TypeError(f"{name}: expected float64 or float32, got {t.dtype}")
     if t.ndim != ndim:
         what = "a (B, n, *) batch" if ndim == 3 else "an (n, *) matrix"
         raise ValueError(f"{name}: expected {what}, got {tuple(t.shape)}")
@@ -95,14 +126,22 @@ def _check(name: str, t: torch.Tensor, ndim: int = 3):
         raise ValueError(f"{name}: unsupported device {t.device}")
 
 
-def _smem_check(name: str, n: int, extra: int):
-    smem = (n * n + extra) * 8
+def _check_pair(name: str, L: torch.Tensor, rhs: torch.Tensor):
+    if L.dtype != rhs.dtype:
+        raise TypeError(f"{name}: L is {L.dtype} but rhs is {rhs.dtype}")
+    if L.device != rhs.device:
+        raise ValueError(f"{name}: L and rhs on different devices")
+
+
+def _smem_check(name: str, n: int, extra: int, itemsize: int):
+    smem = (n * n + extra) * itemsize
     if smem > SMEM_LIMIT:
         raise ValueError(
             f"{name}: n={n} needs {smem} B of shared memory, above the "
             f"{SMEM_LIMIT} B one block has; a batch of factors above n = 169 "
-            "needs a blocked batched design (ROADMAP.md, queue 1 item 14); "
-            "a single instance goes to chol_single / tri_pair_single"
+            "(f64) or 240 (f32) needs a blocked batched design (ROADMAP.md, "
+            "queue 1 item 14); a single instance goes to chol_single / "
+            "tri_pair_single"
         )
 
 
@@ -110,27 +149,32 @@ def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
+def _launch(name: str, t: torch.Tensor, *args):
+    """Call kernel `name`'s C entry point for t's dtype on t's device and
+    count the launch; raise if the launch failed."""
+    from socp_tpu_torch.ops import _build
+
+    suffix = _SUFFIX[t.dtype]
+    with torch.cuda.device(t.device):
+        err = _build.kernel(f"{name}_{suffix}")(*args, _stream(t))
+    if err:
+        raise RuntimeError(f"{name}: launch failed, cudaError {err}")
+    globals()[COUNTERS[name] + ("_f32" if suffix == "f32" else "")] += 1
+
+
 def chol_batched(H: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of a (B, n, n) f64 batch."""
+    """Lower Cholesky factor of a (B, n, n) f64 or f32 batch."""
     _check("chol_batched", H)
     B, n, n2 = H.shape
     if n != n2:
         raise ValueError(f"chol_batched: not square: {tuple(H.shape)}")
     if H.device.type == "cpu":
         return chol_batched_plain(H)
-    _smem_check("chol_batched", n, n)
+    _smem_check("chol_batched", n, n, H.element_size())
     L = torch.empty_like(H)
     if L.numel() == 0:
         return L
-    from socp_tpu_torch.ops import _build
-
-    with torch.cuda.device(H.device):
-        err = _build.kernel("chol_batched")(
-            H.data_ptr(), L.data_ptr(), B, n, _stream(H))
-    if err:
-        raise RuntimeError(f"chol_batched: launch failed, cudaError {err}")
-    global chol_launches
-    chol_launches += 1
+    _launch("chol_batched", H, H.data_ptr(), L.data_ptr(), B, n)
     return L
 
 
@@ -143,28 +187,20 @@ def tri_pair_batched(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if L.shape != (B, n, n) or rhs.shape[:2] != (B, n):
         raise ValueError(
             f"tri_pair_batched: shapes {tuple(L.shape)} / {tuple(rhs.shape)}")
-    if L.device != rhs.device:
-        raise ValueError("tri_pair_batched: L and rhs on different devices")
+    _check_pair("tri_pair_batched", L, rhs)
     if L.device.type == "cpu":
         return tri_pair_batched_plain(L, rhs)
-    _smem_check("tri_pair_batched", n, n * k)
+    _smem_check("tri_pair_batched", n, n * k, L.element_size())
     X = torch.empty_like(rhs)
     if X.numel() == 0:
         return X
-    from socp_tpu_torch.ops import _build
-
-    with torch.cuda.device(L.device):
-        err = _build.kernel("tri_pair_batched")(
-            L.data_ptr(), rhs.data_ptr(), X.data_ptr(), B, n, k, _stream(L))
-    if err:
-        raise RuntimeError(f"tri_pair_batched: launch failed, cudaError {err}")
-    global tri_pair_launches
-    tri_pair_launches += 1
+    _launch("tri_pair_batched", L, L.data_ptr(), rhs.data_ptr(), X.data_ptr(),
+            B, n, k)
     return X
 
 
 def chol_single(H: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor of one (n, n) f64 matrix, any n."""
+    """Lower Cholesky factor of one (n, n) f64 or f32 matrix, any n."""
     _check("chol_single", H, ndim=2)
     n = H.shape[0]
     if H.shape != (n, n):
@@ -174,15 +210,7 @@ def chol_single(H: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(H)
     if n == 0:
         return L
-    from socp_tpu_torch.ops import _build
-
-    with torch.cuda.device(H.device):
-        err = _build.kernel("chol_single")(H.data_ptr(), L.data_ptr(), n,
-                                            _stream(H))
-    if err:
-        raise RuntimeError(f"chol_single: launch failed, cudaError {err}")
-    global chol_single_launches
-    chol_single_launches += 1
+    _launch("chol_single", H, H.data_ptr(), L.data_ptr(), n)
     return L
 
 
@@ -194,26 +222,19 @@ def tri_pair_single(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     if L.shape != (n, n):
         raise ValueError(
             f"tri_pair_single: shapes {tuple(L.shape)} / {tuple(rhs.shape)}")
-    if L.device != rhs.device:
-        raise ValueError("tri_pair_single: L and rhs on different devices")
+    _check_pair("tri_pair_single", L, rhs)
     if L.device.type == "cpu":
         return tri_pair_single_plain(L, rhs)
-    if 2 * n * 8 > SMEM_LIMIT:
+    if 2 * n * L.element_size() > SMEM_LIMIT:
         raise ValueError(
-            f"tri_pair_single: n={n} is above {SMEM_LIMIT // 16}: the kernel "
+            f"tri_pair_single: n={n} is above "
+            f"{SMEM_LIMIT // (2 * L.element_size())} for {L.dtype}: the kernel "
             "keeps the n pivots and one rhs column in shared memory")
     X = torch.empty_like(rhs)
     if X.numel() == 0:
         return X
-    from socp_tpu_torch.ops import _build
-
-    with torch.cuda.device(L.device):
-        err = _build.kernel("tri_pair_single")(
-            L.data_ptr(), rhs.data_ptr(), X.data_ptr(), n, k, _stream(L))
-    if err:
-        raise RuntimeError(f"tri_pair_single: launch failed, cudaError {err}")
-    global tri_pair_single_launches
-    tri_pair_single_launches += 1
+    _launch("tri_pair_single", L, L.data_ptr(), rhs.data_ptr(), X.data_ptr(),
+            n, k)
     return X
 
 

@@ -6,10 +6,11 @@ import.  On the card:
 
     python -m pytest -o addopts='' -m cuda tests/test_torch_cuda.py -q
 
-Kernels are held to their plain PyTorch versions at the reference's kernel
-tolerances (tests/test_pallas.py:90-129); the card path of the solver is
-held to the JAX reference (run on the CPU) as tests/test_torch_solve.py
-holds the CPU path.
+Kernels are held to their plain PyTorch versions: the f64 instances at the
+reference's kernel tolerances (tests/test_pallas.py:90-129), the f32
+instances and the probes bit for bit; the card path of the solver is held
+to the JAX reference (run on the CPU) as tests/test_torch_solve.py and
+tests/test_torch_f32factor.py hold the CPU path.
 """
 
 import numpy as np
@@ -20,7 +21,7 @@ import socp_tpu
 import socp_tpu_torch
 from socp_tpu.models.random_socp import random_socp
 from socp_tpu.models.robust_ls import robust_ls_batch
-from socp_tpu_torch.ops import chol
+from socp_tpu_torch.ops import chol, probes
 
 pytestmark = pytest.mark.cuda
 
@@ -166,3 +167,107 @@ def test_card_single_solve_matches_reference(card, case):
     # p > 0: init 2 Cholesky + 13 pair solves, per iteration 2 + 10
     assert chols >= 4 and chols % 2 == 0 and tris == 5 * chols + 3
     assert out.iterations <= chols // 2 - 1 <= out.iterations + 1
+
+
+# ---- the f32 instances (factor_dtype="float32") and the probes ----------
+
+
+def _spd32(seed, B, n, neg=False):
+    """kappa 1e4: f32 cannot factor the f64 tests' 1e8."""
+    return np.asarray(_spd(seed, B, n, kappa=1e4, neg=neg), np.float32)
+
+
+@pytest.mark.parametrize("B,n", [(256, 102), (8, 240), (4, 1)])
+def test_f32_chol_batched_bit_equal_to_plain(card, B, n):
+    """n = 240 is the largest f32 matrix one block's shared memory holds."""
+    H = torch.as_tensor(_spd32(n, B, n), device=card)
+    before = (chol.chol_launches, chol.chol_launches_f32)
+    L = chol.chol_batched(H)
+    assert (chol.chol_launches, chol.chol_launches_f32) == (before[0], before[1] + 1)
+    assert L.dtype == torch.float32
+    assert torch.equal(L, chol.chol_batched_plain(H))
+
+
+@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 240, 1), (8, 37, 3)])
+def test_f32_tri_pair_batched_bit_equal_to_plain(card, B, n, k):
+    L = chol.chol_batched(torch.as_tensor(_spd32(n + k, B, n), device=card))
+    rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((B, n, k)),
+                          dtype=torch.float32, device=card)
+    before = chol.tri_pair_launches_f32
+    X = chol.tri_pair_batched(L, rhs)
+    assert chol.tri_pair_launches_f32 == before + 1
+    assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
+
+
+@pytest.mark.parametrize("n", [1, 50, 128, 240, 241, 500, 768])
+def test_f32_chol_single_bit_equal_to_plain(card, n):
+    """n <= 240 runs the one-block kernel, larger n the blocked one."""
+    H = torch.as_tensor(_spd32(n, 1, n)[0], device=card)
+    before = chol.chol_single_launches_f32
+    L = chol.chol_single(H)
+    assert chol.chol_single_launches_f32 == before + 1
+    assert torch.equal(L, chol.chol_single_plain(H))
+
+
+@pytest.mark.parametrize("n,k", [(5, 1), (50, 5), (128, 1), (500, 1), (768, 3)])
+def test_f32_tri_pair_single_bit_equal_to_plain(card, n, k):
+    L = chol.chol_single(torch.as_tensor(_spd32(n + k, 1, n)[0], device=card))
+    rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((n, k)),
+                          dtype=torch.float32, device=card)
+    before = chol.tri_pair_single_launches_f32
+    X = chol.tri_pair_single(L, rhs)
+    assert chol.tri_pair_single_launches_f32 == before + 1
+    assert torch.equal(X, chol.tri_pair_single_plain(L, rhs))
+
+
+@pytest.mark.parametrize("n", [102, 500])
+def test_f32_non_pd_gives_non_finite_factor(card, n):
+    L = chol.chol_single(torch.as_tensor(_spd32(7, 1, n, neg=True)[0], device=card))
+    assert not bool(torch.isfinite(L).all())
+
+
+def test_mixed_dtypes_and_oversized_f32_batches_raise(card):
+    L64 = torch.eye(4, dtype=torch.float64, device=card)
+    with pytest.raises(TypeError, match="float64.*float32"):
+        chol.tri_pair_single(L64, torch.ones(4, 1, device=card))
+    with pytest.raises(TypeError, match="float64.*float32"):
+        chol.tri_pair_batched(L64[None], torch.ones(1, 4, 1, device=card))
+    with pytest.raises(ValueError, match="blocked batched design"):
+        chol.chol_batched(torch.eye(241, device=card)[None])
+
+
+def test_card_f32factor_solve_matches_reference(card):
+    """robust_ls_batch(0, 8, n=16, k=24) with factor_dtype="float32" on the
+    card through the f32 batched kernels only; held as
+    tests/test_torch_f32factor.py holds the CPU path (every lane ends
+    optimal, inaccurate there)."""
+    data = dict(_cases())["robust_ls"]
+    ref = socp_tpu.solve_batch_raw(**data, config=socp_tpu.SolverConfig(
+        factor_dtype="float32"))
+    counts = ("chol_launches", "tri_pair_launches", "chol_launches_f32",
+              "tri_pair_launches_f32")
+    before = [getattr(chol, c) for c in counts]
+    out = socp_tpu_torch.solve_batch_raw(
+        **data, config=socp_tpu_torch.SolverConfig(factor_dtype="float32"))
+    c64, t64, c32, t32 = (getattr(chol, c) - b for c, b in zip(counts, before))
+    assert c64 == t64 == 0 and c32 >= 2 and t32 == 3 * c32 + 1
+    np.testing.assert_array_equal(out[4], np.asarray(ref[4]))
+    np.testing.assert_array_equal(out[6][:, 6], np.asarray(ref[6])[:, 6])
+    rp = np.asarray(ref[6])[:, 0]
+    assert np.all(np.abs(out[6][:, 0] - rp) <= 5e-5 * np.maximum(1.0, np.abs(rp)))
+
+
+def test_probe_kernels_bit_equal_to_plain(card):
+    rng = np.random.default_rng(1)
+    a = torch.as_tensor(rng.normal(size=(8, 128)), dtype=torch.float32, device=card)
+    b = torch.as_tensor(rng.normal(size=(8, 128)) * 1e-3, dtype=torch.float32,
+                        device=card)
+    for o, r in zip(probes.eft(a, b), probes.eft_plain(a, b)):
+        assert torch.equal(o, r)
+    M = torch.arange(64 * 64, dtype=torch.float32, device=card).reshape(64, 64)
+    assert torch.equal(probes.row_sum(M), probes.row_sum_plain(M))
+    assert torch.equal(probes.row_reverse(M), M.flip(0))
+    L = torch.linalg.cholesky(torch.as_tensor(_spd32(5, 1, 128)[0], device=card))
+    LT = L.T.contiguous()
+    bb = torch.ones(128, 1, device=card)
+    assert torch.equal(probes.fwd_subst(LT, bb), probes.fwd_subst_plain(LT, bb))
