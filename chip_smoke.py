@@ -10,14 +10,21 @@ Phases, each printing one JSON line to stdout:
               the card, on f64 SPD batches (kappa = 1e8) made from a numpy
               seed, at the main path's shapes and two others; a matrix that
               is not positive definite must give a non-finite factor.
-              Kernel, plain and library (torch.linalg.cholesky_ex /
-              torch.cholesky_solve, never used by the port) are timed with
-              CUDA events.
-  4. single_kernels  the same for the single-instance kernels at n = 1 ...
-              768 (both regimes of the Cholesky kernel) and k = 1, 3, 5
-              (every (n, k) that configs 1 and 2 give them), timed at
-              n = 50 and n = 500 (configs 1 and 2); at n = 50 also the
-              batched Cholesky kernel on a batch of one.
+              Timed two ways (`timed`): call_ms, CUDA events around one
+              call, host work included (median of 15), and kernel_ms, the
+              device time of the kernels one call enqueues, from
+              torch.profiler (median of 15); the library call
+              (torch.linalg.cholesky_ex / torch.cholesky_solve, never used
+              by the port) the same two ways (library_call_ms,
+              library_kernel_ms); the plain version by events.
+  4. single_kernels  the single-instance kernels against their plain
+              versions bit for bit at n = 1 ... 1000 (both sides of the
+              panel and tile edges) and k = 1, 4, 5 (every (n, k) that
+              configs 1 and 2 give them), non-PD inputs of one tile and of
+              many; timed as phase 3 at the shapes configs 1 and 2 give
+              them (SINGLE_CHOL_AT, SINGLE_PAIR_AT); the division on their
+              chains (csrc/div_rn.cuh) against x / p on 2^25 pairs
+              (`div_rn_check`; phase 8 does the same in f32).
   5. main     BASELINE config 3: 4096 robust least-squares SOCPs (n = 100,
               nv = 102, m_pad = 312) in one lockstep batch through
               prepare_batch on "cuda"; every instance OPTIMAL at the 1e-8
@@ -32,7 +39,8 @@ Phases, each printing one JSON line to stdout:
               1e-8 tolerances, the models' own checks, launches only of the
               single-instance kernels in the IPM loop's ratios, the CPU
               (plain path) re-solve agreeing; config 2 again with one Gondzio
-              corrector; then a profile of config 2 as in phase 6.
+              corrector; then profiles of configs 1 and 2 as in phase 6,
+              with the port's kernels' device ms and launches in a solve.
   8. f32_kernels  the f32 instances of the four kernels (the factor of the
               mixed-precision mode, factor_dtype="float32") against their
               plain versions, bit for bit, on f32 SPD batches with kappa =
@@ -40,10 +48,9 @@ Phases, each printing one JSON line to stdout:
               its rounding, 6e-8 relative, times 1e8 exceeds the smallest
               pivot) made from a numpy seed: batched at n = 1 ... 240 (n <= 102
               at B = 4096, n = 169 and 240 at B = 256) with k = 1, 3, single
-              at n = 1 ... 768 (both regimes; the one-block one ends at
-              n = 240 in f32) with k = 1, 3, 5; non-PD inputs give
-              non-finite factors; timed at B = 4096, n = 102 and single at
-              n = 128 and 500, with plain and library times as in phase 3.
+              at n = 1 ... 1000 with k = 1, 4, 5; non-PD inputs give
+              non-finite factors; timed as phase 3 at B = 4096, n = 102 and
+              single at config 2's shapes in this mode and P1's n = 128.
   9. f32factor  config 3 with SolverConfig(factor_dtype="float32") through
               prepare_batch on "cuda" (TF32 off is asserted first): every
               instance OPTIMAL at the reference's relaxed tolerances, pcost
@@ -54,19 +61,22 @@ Phases, each printing one JSON line to stdout:
  10. f32factor_single  config 2 with factor_dtype="float32" through solve:
               status and inaccurate flag as the CPU re-solve says, the
               portfolio's checks at this mode's tolerances, only the f32
-              single kernels launched.
+              single kernels launched; then a profile as in phase 7.
  11. probes   the ports of the Mosaic probes (scripts/pallas_probe*.py;
               socp_tpu_torch/ops/probes.py, csrc/probes.cu) at the probes'
               own shapes, each bit-equal to its plain version and held to
-              its script's own check; P1, the f32 Cholesky at n = 128, runs
-              the f32 single kernel.
-Then a {"kernels": [...]} line (the f64 batched kernels at config 3's
-shapes, with their launches in phase 5; the f64 single-instance ones at
-n = 500, k = 1 with n = 50 beside, with their launches in phase 7's default
-run of config 2 and, per config, of configs 1 and 2; the f32 Cholesky and
-pair solve at B = 4096, n = 102 with the single instances at n = 500 and
-128 beside, with their launches in phases 9 and 10; the probes, with their
-launches in phase 11) and, last, the {"ok": true, ...} line.
+              its script's own check, and timed as phase 3; P1, the f32
+              Cholesky at n = 128, runs the f32 single kernel.
+Then a {"kernels": [...]} line, one row per TPU kernel (11): the f64
+batched kernels at config 3's shapes, with their launches in phase 5; the
+f64 single-instance ones at n = 500, k = 1 with the path's other shapes
+beside, with their launches in phase 7's default run of config 2 and, per
+config, of configs 1 and 2; the f32 Cholesky and pair solve at B = 4096,
+n = 102 with the single instances beside, with their launches in phases 9
+and 10; the probes (P1 its own row), with their launches in phase 11.  A
+row's "ms" and "library_ms" are event times of one call (call_ms,
+library_call_ms), "kernel_ms" and "library_kernel_ms" device times beside
+them.  Last, the {"ok": true, ...} line.
 Any failed check exits non-zero before the last line is printed.  It needs
 CUDA and the repository: without either it exits non-zero.
 """
@@ -74,6 +84,7 @@ CUDA and the repository: without either it exits non-zero.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -90,11 +101,20 @@ FP64_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP64 tensor core (the
 FP32_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP32 (non-tensor)
 CHOL_RTOL, CHOL_ATOL = 1e-9, 1e-11  # tests/test_pallas.py:38-53, 90-107
 TRI_RTOL, TRI_ATOL = 1e-10, 1e-12   # tests/test_pallas.py:71-87, 110-129
-SINGLE_NS = (1, 5, 50, 333, 500, 768)   # up to the reference's _PALLAS_MAX_N
-SINGLE_KS = (1, 3, 5)                   # 5: config 1's p, the k of H^-1 A'
+# both sides of the panel and tile edges (32) and of the one-block limits
+# of the kernels before (169 f64, 240 f32), up to the reference's
+# _PALLAS_MAX_N and past it
+SINGLE_NS = (1, 2, 5, 31, 32, 33, 50, 64, 65, 169, 170, 333, 500, 768, 1000)
+SINGLE_KS = (1, 4, 5)                   # 5: config 1's p, the k of H^-1 A'
+# the shapes the single path gives the kernels: configs 1 and 2 in f64,
+# config 2 in f32 mode and P1 (n = 128) in f32; pair solves as (n, k)
+SINGLE_CHOL_AT = {"f64": (1, 5, 50, 500), "f32": (1, 128, 500)}
+SINGLE_PAIR_AT = {"f64": ((1, 1), (5, 1), (50, 1), (50, 5), (500, 1)),
+                  "f32": ((1, 1), (128, 1), (500, 1))}
 F32_BATCHED = ((B_MAIN, 1), (B_MAIN, 3), (B_MAIN, 37), (B_MAIN, 102),
                (256, 169), (256, 240))      # (B, n); 240: one block's limit
-F32_SINGLE_NS = (1, 5, 50, 128, 240, 241, 333, 500, 768)
+F32_SINGLE_NS = (1, 2, 5, 31, 32, 33, 50, 64, 65, 128, 240, 241, 333, 500,
+                 768, 1000)
 RELAXED_FEAS, RELAXED_GAP = 1e-4, 5e-5  # feastol_inacc, abstol/reltol_inacc
 COUNTERS = {"chol_batched": "chol_launches",
             "tri_pair_batched": "tri_pair_launches",
@@ -143,6 +163,67 @@ def cuda_ms(f, reps=15, warm=3):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def device_ms(f, reps=15, warm=3, tries=5):
+    """Median over the last reps calls of the device time of the kernels
+    (and memsets) one call of f enqueues, summed, from torch.profiler.  A
+    marker kernel (torch.cuda._sleep's spin kernel) goes on the stream
+    before each call and after the last, so a call's device events are
+    those between two markers in stream order.  Unlike cuda_ms it leaves
+    out the host work of the call (ctypes, allocation).  The tracer can
+    drop events, most often at a trace's start: every call enqueues the
+    same kernels, so a call with fewer events than the most seen is
+    incomplete and left out, and a trace with fewer than reps complete
+    calls is taken again (up to `tries` times)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warm):
+        f()
+    torch.cuda.synchronize()
+    for attempt in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(10):          # the tracer may miss the first events
+                torch.cuda._sleep(1000)
+            for _ in range(reps + 5):
+                torch.cuda._sleep(1000)
+                f()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        device = sorted((ev.time_range.start, ev.time_range.elapsed_us(), ev.name)
+                        for ev in prof.events()
+                        if ev.device_type == DeviceType.CUDA)
+        calls, current = [], None        # (events, microseconds) per call
+        for _, us, name in device:
+            if "spin" in name.lower():
+                if current is not None:
+                    calls.append(tuple(current))
+                current = [0, 0.0]
+            elif current is not None:
+                current[0] += 1
+                current[1] += us
+        most = max((c[0] for c in calls), default=0)
+        complete = [c[1] / 1e3 for c in calls if c[0] == most and most > 0]
+        if len(complete) >= reps:
+            return statistics.median(complete[-reps:])
+        print(f"chip_smoke: device_ms try {attempt + 1}: {len(device)} device "
+              f"events, {len(complete)} complete calls of {len(calls)}",
+              file=sys.stderr, flush=True)
+    check(False, f"device_ms: no complete trace in {tries} tries")
+
+
+def timed(f, library, plain, plain_reps=15, **extra):
+    """A kernel's numbers: call_ms and library_call_ms by CUDA events
+    around one call (median of 15, host work included), kernel_ms and
+    library_kernel_ms by device time (median of 15), plain_ms by events."""
+    return dict(call_ms=cuda_ms(f), kernel_ms=device_ms(f),
+                library_call_ms=None if library is None else cuda_ms(library),
+                library_kernel_ms=(None if library is None
+                                   else device_ms(library)),
+                plain_ms=cuda_ms(plain, reps=plain_reps,
+                                 warm=1 if plain_reps < 15 else 3),
+                **extra)
 
 
 def close(a, b, rtol, atol):
@@ -195,6 +276,45 @@ def phase_device():
     return name
 
 
+def _kernel_name(mangled):
+    """`chol_single_tiles_kernel<double>` from its mangled name: the
+    length-prefixed name that ends in "kernel" (the length may follow the
+    digits of a hash, so each suffix of a digit run is tried), then the
+    template arguments, a type and an int."""
+    for m in re.finditer(r"\d+", mangled):
+        for start in range(m.start(), m.end()):
+            name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
+            if name.endswith("kernel") and name.isidentifier():
+                args = re.match(r"I([df])(?:Li(\d+)E)?",
+                                mangled[m.end() + len(name):])
+                if args:
+                    name += "<" + ",".join(
+                        [{"d": "double", "f": "float"}[args[1]]]
+                        + ([args[2]] if args[2] else [])) + ">"
+                return name
+    return mangled
+
+
+def ptxas_report(log):
+    """Registers, stack and spill bytes of every kernel instance in an
+    nvcc -Xptxas=-v log."""
+    out, fn = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            fn = _kernel_name(m[1])
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m and fn:
+            out[fn] = {"stack": int(m[1]), "spill_stores": int(m[2]),
+                       "spill_loads": int(m[3])}
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn in out:
+            out[fn]["registers"] = int(m[1])
+    return out
+
+
 def phase_build():
     from socp_tpu_torch.ops import _build
 
@@ -202,7 +322,12 @@ def phase_build():
     print(log, file=sys.stderr, flush=True)
     for name in _build.KERNELS:
         _build.kernel(name)
-    emit({"phase": "build", "seconds": seconds, "kernels": list(_build.KERNELS)})
+    report = ptxas_report(log)
+    spilled = sorted(k for k, v in report.items() if v["spill_stores"])
+    if spilled:
+        print(f"chip_smoke: spills in {spilled}", file=sys.stderr, flush=True)
+    emit({"phase": "build", "seconds": seconds, "kernels": list(_build.KERNELS),
+          "ptxas": report})
 
 
 def phase_kernels():
@@ -247,18 +372,15 @@ def phase_kernels():
     full = 8 * B_MAIN * nv * nv
     rb = 8 * B_MAIN * nv
     timing = {
-        "chol_batched": dict(
-            ms=cuda_ms(lambda: chol.chol_batched(H)),
-            plain_ms=cuda_ms(lambda: chol.chol_batched_plain(H)),
-            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H)),
-            bound=bound(tri + full, B_MAIN * chol_flops(nv)),
-        ),
-        "tri_pair_batched": dict(
-            ms=cuda_ms(lambda: chol.tri_pair_batched(L, rhs)),
-            plain_ms=cuda_ms(lambda: chol.tri_pair_batched_plain(L, rhs)),
-            library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs, L)),
-            bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv),
-        ),
+        "chol_batched": timed(
+            lambda: chol.chol_batched(H), lambda: torch.linalg.cholesky_ex(H),
+            lambda: chol.chol_batched_plain(H),
+            bound=bound(tri + full, B_MAIN * chol_flops(nv))),
+        "tri_pair_batched": timed(
+            lambda: chol.tri_pair_batched(L, rhs),
+            lambda: torch.cholesky_solve(rhs, L),
+            lambda: chol.tri_pair_batched_plain(L, rhs),
+            bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv)),
     }
     emit({"phase": "kernels", "max_abs_err": {k: max(v) for k, v in results.items()},
           "timing_shape": {"B": B_MAIN, "n": nv, "k": 1},
@@ -267,11 +389,49 @@ def phase_kernels():
     return results, timing
 
 
+def single_timing(dtype, rng):
+    """chol_single and tri_pair_single at the single path's shapes
+    (SINGLE_CHOL_AT, SINGLE_PAIR_AT) in one dtype, each beside its library
+    call and plain version, with its bound."""
+    from socp_tpu_torch.ops import chol
+
+    key = "f64" if dtype == torch.float64 else "f32"
+    size = 8 if key == "f64" else 4
+    rate = FP64_FLOPS_PER_S if key == "f64" else FP32_FLOPS_PER_S
+    kappa = 1e8 if key == "f64" else 1e4
+    out = {"chol_single": {}, "tri_pair_single": {}}
+    factors = {}
+    for n in sorted({n for n in SINGLE_CHOL_AT[key]}
+                    | {n for n, _ in SINGLE_PAIR_AT[key]}):
+        H = torch.as_tensor(spd_batch(rng, 1, n, kappa=kappa)[0], dtype=dtype,
+                            device="cuda")
+        factors[n] = (H, chol.chol_single(H))
+    for n in SINGLE_CHOL_AT[key]:
+        H = factors[n][0]
+        tri = size * n * (n + 1) // 2            # least bytes, as phase_kernels
+        out["chol_single"][f"n={n}"] = timed(
+            lambda: chol.chol_single(H), lambda: torch.linalg.cholesky_ex(H),
+            lambda: chol.chol_single_plain(H), plain_reps=5,
+            bound=bound(tri + size * n * n, chol_flops(n), rate))
+    for n, k in SINGLE_PAIR_AT[key]:
+        L = factors[n][1]
+        rhs = torch.as_tensor(rng.standard_normal((n, k)), dtype=dtype,
+                              device="cuda")
+        tri = size * n * (n + 1) // 2
+        out["tri_pair_single"][f"n={n},k={k}"] = timed(
+            lambda: chol.tri_pair_single(L, rhs),
+            lambda: torch.cholesky_solve(rhs, L),
+            lambda: chol.tri_pair_single_plain(L, rhs), plain_reps=5,
+            bound=bound(tri + 2 * size * n * k, 2 * n * n * k, rate))
+    return out
+
+
 def phase_single_kernels():
-    """The single-instance kernels against their plain versions at n = 1 ...
-    768 and k = 1, 3, 5, the non-PD check, and timings at configs 1 and 2's
-    shapes.  Configs 1 and 2 give the Cholesky n = 50, 5 and 500, 1, and the
-    pair solve (n, k) = (50, 5), (50, 1), (5, 1), (500, 1) and (1, 1)."""
+    """The f64 single-instance kernels against their plain versions, bit for
+    bit, at n = 1 ... 1000 and k = 1, 4, 5; the non-PD check (one tile and
+    many); timings at the shapes configs 1 and 2 give them (the Cholesky at
+    n = 1, 5, 50, 500, the pair solve at (n, k) = (1, 1), (5, 1), (50, 1),
+    (50, 5), (500, 1))."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED + 1)
@@ -280,21 +440,15 @@ def phase_single_kernels():
     for n in SINGLE_NS:
         H = torch.as_tensor(spd_batch(rng, 1, n)[0], device=dev)
         L = chol.chol_single(H)
-        Lp = chol.chol_single_plain(H)
-        torch.cuda.synchronize()
-        ok, err = close(L, Lp, CHOL_RTOL, CHOL_ATOL)
-        check(ok, f"chol_single vs plain at n={n}: max err {err}")
-        results["chol_single"].append(err)
+        results["chol_single"].append(
+            bit_equal(L, chol.chol_single_plain(H), f"chol_single n={n}"))
         for k in SINGLE_KS:
             rhs = torch.as_tensor(rng.standard_normal((n, k)), device=dev)
-            X = chol.tri_pair_single(L, rhs)
-            Xp = chol.tri_pair_single_plain(L, rhs)
-            torch.cuda.synchronize()
-            ok, err = close(X, Xp, TRI_RTOL, TRI_ATOL)
-            check(ok, f"tri_pair_single vs plain at n={n} k={k}: max err {err}")
-            results["tri_pair_single"].append(err)
+            results["tri_pair_single"].append(bit_equal(
+                chol.tri_pair_single(L, rhs), chol.tri_pair_single_plain(L, rhs),
+                f"tri_pair_single n={n} k={k}"))
 
-    for n in (50, 500):                      # both regimes of the factor
+    for n in (20, 50, 500):                  # one tile, then the dataflow
         bad = torch.as_tensor(spd_batch(rng, 1, n, neg=True)[0], device=dev)
         for f in (chol.chol_single, chol.chol_single_plain):
             Lb = f(bad)
@@ -302,34 +456,13 @@ def phase_single_kernels():
             check(not bool(torch.isfinite(Lb).all()),
                   f"{f.__name__}: a non-PD input at n={n} gave a finite factor")
 
-    timing = {"chol_single": {}, "tri_pair_single": {}}
-    for n in (50, 500):                      # configs 1 and 2: H is n x n
-        H = torch.as_tensor(spd_batch(rng, 1, n)[0], device=dev)
-        L = chol.chol_single(H)
-        rhs = torch.as_tensor(rng.standard_normal((n, 1)), device=dev)
-        tri = 8 * n * (n + 1) // 2           # least bytes, as phase_kernels
-        timing["chol_single"][n] = dict(
-            ms=cuda_ms(lambda: chol.chol_single(H)),
-            plain_ms=cuda_ms(lambda: chol.chol_single_plain(H), reps=5, warm=1),
-            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H)),
-            bound=bound(tri + 8 * n * n, chol_flops(n)),
-        )
-        if n <= 169:
-            # the one-block regime beside the batched kernel at B = 1, which
-            # runs the same column loop with 256 threads instead of 512
-            timing["chol_single"][n]["batched_kernel_b1_ms"] = cuda_ms(
-                lambda: chol.chol_batched(H[None]))
-        timing["tri_pair_single"][n] = dict(
-            ms=cuda_ms(lambda: chol.tri_pair_single(L, rhs)),
-            plain_ms=cuda_ms(lambda: chol.tri_pair_single_plain(L, rhs),
-                             reps=5, warm=1),
-            library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs, L)),
-            bound=bound(tri + 2 * 8 * n, 2 * n * n),
-        )
+    timing = single_timing(torch.float64, rng)
     emit({"phase": "single_kernels", "ns": list(SINGLE_NS), "ks": list(SINGLE_KS),
+          "bit_equal": True, "div_rn_pairs": div_rn_check(torch.float64),
           "max_abs_err": {k: max(v) for k, v in results.items()},
-          "timing": {name: {f"n={n}": t for n, t in by_n.items()}
-                     for name, by_n in timing.items()}})
+          "timing": {name: {at: {kk: vv for kk, vv in t.items() if kk != "bound"}
+                            for at, t in by.items()}
+                     for name, by in timing.items()}})
     return results, timing
 
 
@@ -420,8 +553,8 @@ def _category(name):
                      ("reduce", "reductions"), ("cat", "cat"),
                      ("elementwise", "elementwise"), ("copy", "copies")):
         if key in low:
-            # the kernels' f32 instances are <float> templates
-            return f"{cat}_f32" if "_kernel<float>" in low else cat
+            # the kernels' f32 instances are <float...> templates
+            return f"{cat}_f32" if "_kernel<float" in low else cat
     return "other"
 
 
@@ -453,11 +586,15 @@ def phase_profile(run, solve_s, config):
         c = cats.setdefault(_category(name), {"ms": 0.0, "launches": 0})
         c["ms"] += ms
         c["launches"] += count
+    # the device time of the port's kernels in this solve, by kernel
+    ours = {c: v for c, v in cats.items()
+            if c.startswith(("chol_", "tri_pair_"))}
     emit({"phase": "profile", "config": config, "device_busy_ms": busy,
           "unprofiled_wall_ms": solve_s * 1e3,
           "device_idle_share": 1.0 - busy / (solve_s * 1e3),
           "profiled_wall_ms": wall_ms,
-          "profiled_idle_share": 1.0 - busy / wall_ms, "by_category": cats,
+          "profiled_idle_share": 1.0 - busy / wall_ms,
+          "port_kernels": ours, "by_category": cats,
           "top": [{"name": name[:100], "ms": ms, "count": count}
                   for ms, count, name in kernels[:12]]})
 
@@ -547,8 +684,12 @@ def phase_single():
     g0, g1 = out["config2"][2], out["config2_gondzio1"][2]
     emit({"phase": "single_gondzio", "config": "config2",
           "solve_ms": {"gondzio0": g0 * 1e3, "gondzio1": g1 * 1e3}})
-    prob, cfg, solve_s = out["config2"]
-    return by_config, (lambda: solve(prob, config=cfg, device="cuda")), solve_s
+    runs = {}
+    for label in ("config1", "config2"):
+        prob, cfg, solve_s = out[label]
+        runs[label] = ((lambda p=prob, c=cfg: solve(p, config=c, device="cuda")),
+                       solve_s)
+    return by_config, runs
 
 
 def f32_spd(rng, B, n, neg=False):
@@ -565,10 +706,49 @@ def bit_equal(a, b, what):
     return err
 
 
+def div_rn_check(dtype, pairs=1 << 24):
+    """div_rn (csrc/div_rn.cuh), the division on the single kernels'
+    chains, against the card's own x / p on `pairs` random bit patterns
+    (every class of value) and as many log-uniform normal pairs of random
+    signs, made from SEED: bit for bit (a NaN for a NaN).  Returns the
+    number of pairs."""
+    from socp_tpu_torch.ops import _build
+
+    size = torch.finfo(dtype).bits // 8
+    g = torch.Generator(device="cuda")
+    g.manual_seed(SEED)
+
+    def bits():
+        return torch.randint(0, 256, (pairs * size,), device="cuda",
+                             generator=g, dtype=torch.uint8).view(dtype)
+
+    def log_uniform(sign):
+        top = 1000 if size == 8 else 125
+        e = torch.randint(-top, top, (pairs,), device="cuda", generator=g)
+        m = torch.rand(pairs, device="cuda", generator=g, dtype=torch.float64)
+        s = (torch.randint(0, 2, (pairs,), device="cuda", generator=g) * 2 - 1
+             if sign else 1)
+        return (s * (1 + m) * torch.pow(2.0, e.double())).to(dtype)
+
+    x = torch.cat([bits(), log_uniform(True)])
+    p = torch.cat([bits(), log_uniform(True)])
+    out = torch.empty_like(x)
+    err = _build.kernel(f"div_rn_{'f64' if size == 8 else 'f32'}")(
+        x.data_ptr(), p.data_ptr(), out.data_ptr(), x.numel(),
+        torch.cuda.current_stream().cuda_stream)
+    check(err == 0, f"div_rn launch failed, cudaError {err}")
+    want = x / p
+    ints = torch.int64 if size == 8 else torch.int32
+    same = (out.view(ints) == want.view(ints)) | (out.isnan() & want.isnan())
+    check(bool(same.all()), f"div_rn {dtype}: {int((~same).sum())} of "
+                            f"{x.numel()} quotients differ from x / p")
+    return x.numel()
+
+
 def phase_f32_kernels():
     """The f32 instances of the four kernels against their plain versions,
-    bit for bit; the non-PD check; timings at config 3's shape and at
-    n = 128 (P1's) and n = 500 (config 2's) single."""
+    bit for bit; the non-PD check; timings at config 3's shape and the
+    single ones at n = 1 and 500 (config 2's in f32 mode) and 128 (P1's)."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED + 2)
@@ -603,7 +783,7 @@ def phase_f32_kernels():
         torch.cuda.synchronize()
         check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
               f"{f.__name__} f32: a non-PD input gave a finite factor")
-    for n in (128, 500):                     # both regimes of the factor
+    for n in (20, 128, 500):                 # one tile, then the dataflow
         bad = f32_spd(rng, 1, n, neg=True)[0]
         for f in (chol.chol_single, chol.chol_single_plain):
             Lb = f(bad)
@@ -620,36 +800,23 @@ def phase_f32_kernels():
     full = 4 * B_MAIN * nv * nv
     rb = 4 * B_MAIN * nv
     timing = {"chol_f32": {}, "tri_pair_f32": {}}
-    timing["chol_f32"]["batched"] = dict(
-        ms=cuda_ms(lambda: chol.chol_batched(H)),
-        plain_ms=cuda_ms(lambda: chol.chol_batched_plain(H)),
-        library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H)),
+    timing["chol_f32"]["batched"] = timed(
+        lambda: chol.chol_batched(H), lambda: torch.linalg.cholesky_ex(H),
+        lambda: chol.chol_batched_plain(H),
         bound=bound(tri + full, B_MAIN * chol_flops(nv), FP32_FLOPS_PER_S))
-    timing["tri_pair_f32"]["batched"] = dict(
-        ms=cuda_ms(lambda: chol.tri_pair_batched(L, rhs)),
-        plain_ms=cuda_ms(lambda: chol.tri_pair_batched_plain(L, rhs)),
-        library_ms=cuda_ms(lambda: torch.cholesky_solve(rhs, L)),
+    timing["tri_pair_f32"]["batched"] = timed(
+        lambda: chol.tri_pair_batched(L, rhs), lambda: torch.cholesky_solve(rhs, L),
+        lambda: chol.tri_pair_batched_plain(L, rhs),
         bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv, FP32_FLOPS_PER_S))
-    for n in (500, 128):
-        H1 = f32_spd(rng, 1, n)[0]
-        L1 = chol.chol_single(H1)
-        r1 = torch.as_tensor(rng.standard_normal((n, 1)), dtype=torch.float32,
-                             device=dev)
-        tri1 = 4 * n * (n + 1) // 2
-        timing["chol_f32"][f"single_n{n}"] = dict(
-            ms=cuda_ms(lambda: chol.chol_single(H1)),
-            plain_ms=cuda_ms(lambda: chol.chol_single_plain(H1), reps=5, warm=1),
-            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H1)),
-            bound=bound(tri1 + 4 * n * n, chol_flops(n), FP32_FLOPS_PER_S))
-        timing["tri_pair_f32"][f"single_n{n}"] = dict(
-            ms=cuda_ms(lambda: chol.tri_pair_single(L1, r1)),
-            plain_ms=cuda_ms(lambda: chol.tri_pair_single_plain(L1, r1),
-                             reps=5, warm=1),
-            library_ms=cuda_ms(lambda: torch.cholesky_solve(r1, L1)),
-            bound=bound(tri1 + 2 * 4 * n, 2 * n * n, FP32_FLOPS_PER_S))
+    single = single_timing(torch.float32, rng)
+    timing["chol_f32"].update({f"single_{at}": t
+                               for at, t in single["chol_single"].items()})
+    timing["tri_pair_f32"].update({f"single_{at}": t
+                                   for at, t in single["tri_pair_single"].items()})
     emit({"phase": "f32_kernels", "batched": [list(x) for x in F32_BATCHED],
           "single_ns": list(F32_SINGLE_NS), "ks": list(SINGLE_KS),
           "kappa": 1e4, "bit_equal": True,
+          "div_rn_pairs": div_rn_check(torch.float32),
           "max_abs_err": {k: max(v) for k, v in errs.items()},
           "timing": {name: {at: {kk: vv for kk, vv in t.items() if kk != "bound"}
                             for at, t in by.items()}
@@ -802,7 +969,7 @@ def phase_f32factor_single():
           "pres": sol.pres, "dres": sol.dres, "launches": launches, **model,
           "cpu_recheck": {"status": cpu.status_name, "inaccurate": cpu.inaccurate,
                           "iterations": cpu.iterations, "pcost_rel": rel}})
-    return launches
+    return launches, (lambda: solve(prob, config=cfg, device="cuda")), solve_s
 
 
 def phase_probes():
@@ -861,30 +1028,25 @@ def phase_probes():
 
     n = 128
     timing = {
-        "probe_eft": dict(
-            ms=cuda_ms(lambda: probes.eft(a, b)),
-            plain_ms=cuda_ms(lambda: probes.eft_plain(a, b)), library_ms=None,
+        "probe_eft": timed(
+            lambda: probes.eft(a, b), None, lambda: probes.eft_plain(a, b),
             bound=bound(6 * 4 * a.numel(), 23 * a.numel(), FP32_FLOPS_PER_S)),
-        "probe_read": dict(
-            ms=cuda_ms(lambda: probes.row_sum(M)),
-            plain_ms=cuda_ms(lambda: probes.row_sum_plain(M)),
-            library_ms=cuda_ms(lambda: M.sum(0)),
+        "probe_read": timed(
+            lambda: probes.row_sum(M), lambda: M.sum(0),
+            lambda: probes.row_sum_plain(M),
             bound=bound(4 * (M.numel() + M.shape[1]), M.numel(), FP32_FLOPS_PER_S)),
-        "probe_write": dict(
-            ms=cuda_ms(lambda: probes.row_reverse(M)),
-            plain_ms=cuda_ms(lambda: probes.row_reverse_plain(M)),
-            library_ms=cuda_ms(lambda: M.flip(0)),
+        "probe_write": timed(
+            lambda: probes.row_reverse(M), lambda: M.flip(0),
+            lambda: probes.row_reverse_plain(M),
             bound=bound(2 * 4 * M.numel(), 0, FP32_FLOPS_PER_S)),
-        "probe_fwd": dict(
-            ms=cuda_ms(lambda: probes.fwd_subst(LT, bb)),
-            plain_ms=cuda_ms(lambda: probes.fwd_subst_plain(LT, bb)),
-            library_ms=cuda_ms(lambda: torch.linalg.solve_triangular(
-                LT.mT, bb, upper=False)),
+        "probe_fwd": timed(
+            lambda: probes.fwd_subst(LT, bb),
+            lambda: torch.linalg.solve_triangular(LT.mT, bb, upper=False),
+            lambda: probes.fwd_subst_plain(LT, bb),
             bound=bound(4 * (n * (n + 1) // 2 + 2 * n), n * n, FP32_FLOPS_PER_S)),
-        "P1_chol_single_f32": dict(
-            ms=cuda_ms(lambda: chol.chol_single(H1)),
-            plain_ms=cuda_ms(lambda: chol.chol_single_plain(H1), reps=5, warm=1),
-            library_ms=cuda_ms(lambda: torch.linalg.cholesky_ex(H1)),
+        "probe_chol": timed(
+            lambda: chol.chol_single(H1), lambda: torch.linalg.cholesky_ex(H1),
+            lambda: chol.chol_single_plain(H1), plain_reps=5,
             bound=bound(4 * (n * (n + 1) // 2 + n * n), chol_flops(n),
                         FP32_FLOPS_PER_S)),
     }
@@ -908,12 +1070,14 @@ def main():
     s_errs, s_timing = phase_single_kernels()
     launches, fn, args, solve_s = phase_main()
     phase_profile(lambda: fn(*args)[4].cpu(), solve_s, "config3")
-    s_launches, run2, solve2_s = phase_single()
-    phase_profile(run2, solve2_s, "config2")
+    s_launches, single_runs = phase_single()
+    for label, (run, run_s) in single_runs.items():
+        phase_profile(run, run_s, label)
     f_errs, f_timing = phase_f32_kernels()
     f_launches, f_fn, f_args, f_solve_s = phase_f32factor()
     phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
-    fs_launches = phase_f32factor_single()
+    fs_launches, fs_run, fs_solve_s = phase_f32factor_single()
+    phase_profile(fs_run, fs_solve_s, "config2_f32factor")
     p_launches, p_errs, p_timing = phase_probes()
     errs.update(s_errs)
     meta = {
@@ -928,9 +1092,15 @@ def main():
     }
 
     def numbers(t):
-        return {"ms": t["ms"], "kernel_ms": t["ms"], "plain_ms": t["plain_ms"],
+        # ms, library_ms: CUDA events around one call, host work included
+        # (call_ms, library_call_ms); kernel_ms, library_kernel_ms: device
+        # time of the kernels the call enqueues
+        return {"ms": t["call_ms"], "call_ms": t["call_ms"],
+                "kernel_ms": t["kernel_ms"], "plain_ms": t["plain_ms"],
                 "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-                "library_ms": t["library_ms"]}
+                "library_ms": t["library_call_ms"],
+                "library_call_ms": t["library_call_ms"],
+                "library_kernel_ms": t["library_kernel_ms"]}
 
     rows = []
     for name, (source, replaces) in meta.items():
@@ -939,49 +1109,50 @@ def main():
                "max_abs_err": max(errs[name])}
         if name in s_timing:
             # at config 2's shape (n = 500, k = 1) with config 2's launches;
-            # config 1's shape (n = 50) and each config's launches beside
-            row.update(numbers(s_timing[name][500]), at={"n": 500, "k": 1},
+            # the other shapes of the path and each config's launches beside
+            at = "n=500" if name == "chol_single" else "n=500,k=1"
+            row.update(numbers(s_timing[name][at]), at={"n": 500, "k": 1},
                        launches=s_launches["config2"][name],
                        launches_by_config={c: v[name]
                                            for c, v in s_launches.items()},
-                       n50=numbers(s_timing[name][50]))
+                       by_shape={a: numbers(t) for a, t in s_timing[name].items()})
         else:
             row.update(numbers(timing[name]))
         rows.append(row)
     # the f32 instances: one row per TPU kernel, at config 3's shape with
-    # the single instance's numbers (config 2's n = 500, P1's n = 128) beside;
+    # the single instance's numbers at the single path's shapes beside;
     # launches: the batched instance's in phase 9 plus the single's in 10
-    for name, base, replaces, also in (
-            ("chol_f32", "chol", "socp_tpu/ops/pallas_chol.py:68",
-             "scripts/pallas_probe.py:46 (P1: the single instance at n = 128)"),
-            ("tri_pair_f32", "tri_pair", "socp_tpu/ops/pallas_chol.py:105", None)):
+    for name, base, replaces in (
+            ("chol_f32", "chol", "socp_tpu/ops/pallas_chol.py:68"),
+            ("tri_pair_f32", "tri_pair", "socp_tpu/ops/pallas_chol.py:105")):
         t = f_timing[name]
         b_name, s_name = f"{base}_batched_f32", f"{base}_single_f32"
-        row = {"name": name, "route": "cuda",
-               "source": f"socp_tpu_torch/csrc/{base}_batched.cu",
-               "replaces": replaces,
-               "launches": f_launches[b_name] + fs_launches[s_name],
-               "launches_by_phase": {"f32factor": {b_name: f_launches[b_name]},
-                                     "f32factor_single": {s_name: fs_launches[s_name]}},
-               "max_abs_err": max(f_errs[name]),
-               **numbers(t["batched"]), "at": {"B": B_MAIN, "n": N_MAIN + 2, "k": 1},
-               "single": {"source": f"socp_tpu_torch/csrc/{base}_single.cu",
-                          "n500": numbers(t["single_n500"]),
-                          "n128": numbers(t["single_n128"])}}
-        if also:
-            row["also_replaces"] = also
-            row["P1"] = {"launches": p_launches["chol_single_f32"],
-                         "max_abs_err": p_errs["P1"],
-                         **numbers(p_timing["P1_chol_single_f32"])}
-        rows.append(row)
-    for name, replaces, err in (
-            ("probe_eft", "scripts/pallas_probe.py:87", "P2"),
-            ("probe_read", "scripts/pallas_probe2.py:41", "P3"),
-            ("probe_write", "scripts/pallas_probe2.py:63", "P4"),
-            ("probe_fwd", "scripts/pallas_probe2.py:84", "P5")):
-        rows.append({"name": name, "route": "cuda",
-                     "source": "socp_tpu_torch/csrc/probes.cu",
-                     "replaces": replaces, "launches": p_launches[name],
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"socp_tpu_torch/csrc/{base}_batched.cu",
+            "replaces": replaces,
+            "launches": f_launches[b_name] + fs_launches[s_name],
+            "launches_by_phase": {"f32factor": {b_name: f_launches[b_name]},
+                                  "f32factor_single": {s_name: fs_launches[s_name]}},
+            "max_abs_err": max(f_errs[name]),
+            **numbers(t["batched"]), "at": {"B": B_MAIN, "n": N_MAIN + 2, "k": 1},
+            "single": {"source": f"socp_tpu_torch/csrc/{base}_single.cu",
+                       **{at[len("single_"):]: numbers(v) for at, v in t.items()
+                          if at.startswith("single_")}}})
+    for name, source, replaces, err in (
+            ("probe_chol", "socp_tpu_torch/csrc/chol_single.cu",
+             "scripts/pallas_probe.py:46", "P1"),
+            ("probe_eft", "socp_tpu_torch/csrc/probes.cu",
+             "scripts/pallas_probe.py:87", "P2"),
+            ("probe_read", "socp_tpu_torch/csrc/probes.cu",
+             "scripts/pallas_probe2.py:41", "P3"),
+            ("probe_write", "socp_tpu_torch/csrc/probes.cu",
+             "scripts/pallas_probe2.py:63", "P4"),
+            ("probe_fwd", "socp_tpu_torch/csrc/probes.cu",
+             "scripts/pallas_probe2.py:84", "P5")):
+        count = "chol_single_f32" if name == "probe_chol" else name
+        rows.append({"name": name, "route": "cuda", "source": source,
+                     "replaces": replaces, "launches": p_launches[count],
                      "max_abs_err": p_errs[err], **numbers(p_timing[name])})
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -1,9 +1,9 @@
 // chol_column.cuh -- the right-looking column loop of a lower Cholesky
 // factor (f64 or f32) with the whole n x n matrix in one block's shared
 // memory, and the correctly rounded scalar operations the kernels share.
-// Used by chol_batched.cu (one instance per block) and chol_single.cu (the
-// one-block regime); their notes say what bounds it and why it is written
-// this way.
+// The loop is chol_batched.cu's (one instance per block); the other sources
+// use the scalar operations.  chol_batched.cu's note says what bounds the
+// loop and why it is written this way.
 //
 // Step j: col[i] = M[i][j] / sqrt(M[j][j]) for i >= j, then the rank-1
 // update M[i][k] -= col[i] col[k] of the trailing lower triangle, written
@@ -30,13 +30,6 @@ __device__ __forceinline__ float sub_rn(float a, float b) {
 }
 __device__ __forceinline__ double sqrt_rn(double a) { return sqrt(a); }
 __device__ __forceinline__ float sqrt_rn(float a) { return sqrtf(a); }
-
-// Largest n whose n x n matrix plus one column fits one block's shared
-// memory on Hopper, (n * n + n) * sizeof(T) <= 232,448 bytes.
-template <typename T>
-constexpr int one_block_max_n() {
-  return sizeof(T) == 8 ? 169 : 240;
-}
 
 // H, L: one n x n row-major matrix in device memory (L gets zeros above the
 // diagonal); M: n * n and col: n entries of shared memory.  Every thread of

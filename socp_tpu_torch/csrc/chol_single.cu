@@ -1,5 +1,5 @@
 // chol_single.cu -- lower Cholesky factor of ONE (n, n) f64 or f32 matrix,
-// any n.
+// any n, in one kernel launch.
 //
 // chol_single_f64 replaces socp_tpu/ops/pallas_chol.py:_dd_chol_kernel
 // (entry point cholesky_dd): the single-instance, right-looking dd32
@@ -12,239 +12,492 @@
 // on the single path.  At n = 128 it is also the port of the Mosaic probe
 // scripts/pallas_probe.py:_chol_kernel (P1), the same function.
 //
-// What bounds it on this card.  It must read the lower triangle of H
-// (n^2 / 2 entries) and write the n x n factor (n^2 entries), and does about
-// n^3 / 3 flops: at n = 500 in f64 that is 3 MB and 42 MFLOP, 0.9 us at
-// 3.35 TB/s against 0.6 us at the card's fastest FP64 rate (67 TFLOP/s),
-// so the bytes bound it; in f32, 1.5 MB (4 B an entry) against the same
-// flops at 67 TFLOP/s FP32 (non-tensor; H100 SXM data sheet), bytes again.
-// This design is far from that: n dependent column steps, each ending in a
-// barrier or (every 32 columns) a launch, set its time.
+// What bounds it on this card.  It must read the lower triangle of H and
+// write the n x n factor, about n^3 / 3 flops: at n = 500 in f64, 3 MB and
+// 42 MFLOP, under 1 us of bytes or flops.  Neither sets its time.  Column
+// t needs the square root of its pivot, final only once column t - 1 is
+// applied, and each of its entries a division by it: n square roots and n
+// rounds of IEEE divisions in one dependent chain, each link a barrier or
+// a flag apart.  The chain's latency bounds the kernel (PERF.md has its
+// times): per 32 columns one block factors a diagonal tile and solves the
+// tile below it, 64 steps of a division, a barrier and a multiply-subtract
+// each, plus a tile update and two hand-overs between blocks.
 //
-// What the design does about it.  Two regimes:
-//
-//  * n <= one_block_max_n<T>() (169 in f64, 240 in f32): the whole matrix
-//    fits one block's 227 KB of shared memory, so one block runs the
-//    right-looking column loop on chip (chol_column.cuh, as
-//    chol_batched.cu runs it for each instance): device memory is read
-//    once and written once, one launch.  It is a kernel of its own, not
-//    chol_batched at B = 1, for its thread count: with one block on the
-//    card, 512 threads instead of 256 share each column's update, and at
-//    n = 50 it took 0.059 ms against the batched kernel's 0.070 ms in f64
-//    (chip_smoke.py's single_kernels phase, batched_kernel_b1_ms; H100
-//    80GB HBM3 at 700 W).
-//  * above (500 x 500 is 2 MB in f64, 1 MB in f32): a blocked right-looking
-//    factor over panels of kNb = 32 columns, 2 ceil(n / 32) launches on one
-//    stream:
-//      init    L = tril(H) (many blocks);
-//      panel   ONE block factors the 32 x 32 diagonal block in shared memory
-//              (the column loop), then each thread finishes whole rows below
-//              it (a triangular solve against the diagonal block, no
-//              barriers, the row in registers);
-//      update  the trailing lower triangle, tiles of 32 x 32 over many
-//              blocks, each tile's two 32 x 32 panel slices in shared
-//              memory: A[i][c] -= sum_t L[i][t] L[c][t].  This is the TPU
-//              kernel's rank-1 update (pallas_chol.py:183-185) applied 32
-//              columns at a time; it is hand-written, not a library GEMM.
-//    The factor lives in device memory (50 MB of L2 holds it) and never
-//    needs more shared memory than two 32 x 33 tiles, so every n works.
-//
-// Agreement with the plain version.  Every entry (i, c) of L sees the same
-// rounded operations in the same order in both regimes as in the plain
-// PyTorch column loop (ops/chol.py): acc -= L[i][t] * L[c][t] for t = 0, 1,
-// ..., c - 1, then L[i][c] = acc / sqrt(pivot).  Blocking only changes
-// which launch applies which t, never the order per entry, and the update
-// uses mul_rn / sub_rn (chol_column.cuh), which the compiler never
-// contracts into an FMA.  So the kernel agrees with the plain version bit
-// for bit in either type (sqrt and division are IEEE-rounded in both).
-//
-// A non-positive pivot gives NaN from sqrt (or 0/0), and the NaN flows on
-// through the later columns and panels: there is no early exit and no
-// error, so the caller sees a non-finite factor.
+// What the design does about it.  A dataflow over 32 x 32 lower tiles in
+// one launch, built so that the chain runs in ONE block with nothing else
+// on it:
+//   the walker  (ticket 0) runs the diagonal: for K = 0, 1, ... it applies
+//               panel K - 1 to tile (K, K) from tile (K, K - 1), which it
+//               solved itself and still holds, factors the tile (the column
+//               loop, 8 warps, one barrier a column), then solves tile
+//               (K + 1, K).  Both tiles come to it with every other update
+//               applied; the next diagonal tile is copied in (cp.async)
+//               during the solve when it is ready.
+//   the rest    (tickets 1, 2, ...) apply each tile's updates panel by
+//               panel, 32 columns a panel, as the panels are published, and
+//               solve the tiles below the sub-diagonal against the published
+//               diagonal tile: that work spreads over every SM.
+// A step's division is div_rn (div_rn.cuh): IEEE division with the
+// divisor's reciprocal taken once (at the factor step for the square root,
+// then kept for the solves), done by every lane of the owner warp -- lanes
+// whose quotient is not wanted divide 1 -- so that no division sits in a
+// divergent branch.  Between the factor and the solve, one thread releases
+// the diagonal tile's flag while two others wait for the sub-diagonal tile
+// and look at the next diagonal tile's flag, behind one barrier.
+// Blocks take tickets from an atomic counter in a dependency order (see the
+// kernel), so the lowest unfinished ticket always has its inputs and a
+// running block: progress needs no co-residency and no scheduling order.
+// A finished tile publishes a flag (release at device scope; a reader
+// acquires it, then reads L from L2 with __ldcg or cp.async.cg).  The
+// entry point zeroes the ticket and the flags in the wrapper's scratch
+// buffer (cudaMemsetAsync on the call's stream) before every launch, so no
+// call reads another's flags, and both are plain stream operations, which
+// a CUDA graph captures.  One tile (n <= 32) is the walker alone: no
+// scratch.  At n = 50 and 128 the tiles also beat one-block designs that
+// keep the whole matrix in one block's shared memory or registers (one or
+// two barriers a column), and the walker's column loop beat one that
+// factors and solves a tile on one warp with the rows in registers (no
+// barrier, but unrolled code too large for the instruction cache; PERF.md).
 
+// Agreement with the plain version.  Every entry (i, c) of L sees the plain
+// column loop's rounded operations in its order (ops/chol.py): acc -=
+// L[i][t] * L[c][t] for t = 0, 1, ..., c - 1, then L[i][c] = acc /
+// sqrt(pivot c).  The tiles change only which block applies which t,
+// mul_rn / sub_rn (chol_column.cuh) are never contracted into an FMA and
+// div_rn is x / p bit for bit, so the kernel agrees with the plain version
+// bit for bit in either type.
+//
+// A non-positive pivot gives NaN from sqrt (or 0/0), and the NaN flows on:
+// no early exit and no error, every tile still publishes its flag, and the
+// caller sees a non-finite factor.
+
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 
 #include "chol_column.cuh"
+#include "div_rn.cuh"
 
 namespace {
 
-constexpr int kSmallThreads = 512;
-constexpr int kNb = 32;            // panel width
-constexpr int kPanelThreads = 512;
-constexpr int kTileThreads = 256;  // trailing update: kNb x kNb tiles
-
-// ---- n <= one_block_max_n<T>(): the whole matrix in one block's shared
-// memory
+constexpr int kT = 32;                     // tile width
+constexpr int kTileThreads = 256;          // 8 warps a tile
+constexpr int kWarps = kTileThreads / 32;
+constexpr int kRows = kT / kWarps;         // tile rows a thread updates
+constexpr unsigned kFull = 0xffffffffu;
+constexpr int kMaxDevices = 64;
 
 template <typename T>
-__global__ void __launch_bounds__(kSmallThreads)
-chol_single_small_kernel(const T* __restrict__ H, T* __restrict__ L, int n) {
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* smem = reinterpret_cast<T*>(smem_raw);
-  // the n x n working matrix, then the scaled column j
-  chol_column_loop(H, L, smem, smem + n * n, n);
+using Tile = T[kT][kT + 1];  // a 32 x 32 tile in shared memory (+1: banks)
+
+// The scratch buffer, in ints: [0] the ticket counter, then one flag a
+// tile (nt x nt, nt = ceil(n / 32)), then from an even offset the n square
+// roots of the pivots (of type T).  The flags and the ticket are zeroed for
+// every call; the square roots are written before they are read.
+__host__ __device__ constexpr int tiles_of(int n) { return (n + kT - 1) / kT; }
+__host__ __device__ constexpr int roots_offset(int nt) {
+  return (1 + nt * nt + 1) & ~1;
 }
 
-// ---- larger n: blocked right-looking factor, in place in L --------------
-
+// A[a][b] -= Si[a][t] Sb[b][t] for t = 0 .. 31 in order: the thread's
+// kRows entries (rows ty + 8 m, column tx) as independent chains.
 template <typename T>
-__global__ void chol_single_init_kernel(const T* __restrict__ H,
-                                        T* __restrict__ L, int n) {
-  const size_t nn = static_cast<size_t>(n) * n;
-  for (size_t e = static_cast<size_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-       e < nn; e += static_cast<size_t>(gridDim.x) * blockDim.x) {
-    const size_t r = e / n;
-    const size_t c = e - r * n;
-    L[e] = c <= r ? H[e] : T(0);
+__device__ __forceinline__ void update_tile(Tile<T>& A, const Tile<T>& Si,
+                                            const Tile<T>& Sb) {
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  T acc[kRows];
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) acc[m] = A[ty + m * kWarps][tx];
+#pragma unroll 8
+  for (int t = 0; t < kT; ++t) {
+    const T b = Sb[tx][t];
+#pragma unroll
+    for (int m = 0; m < kRows; ++m) {
+      acc[m] = sub_rn(acc[m], mul_rn(Si[ty + m * kWarps][t], b));
+    }
   }
+#pragma unroll
+  for (int m = 0; m < kRows; ++m) A[ty + m * kWarps][tx] = acc[m];
 }
 
-// Columns [k0, k0 + nb) of L, nb = min(kNb, n - k0), one block.  Earlier
-// panels' updates are already in L.
-template <typename T>
-__global__ void __launch_bounds__(kPanelThreads)
-chol_single_panel_kernel(T* __restrict__ L, int n, int k0) {
-  __shared__ T D[kNb][kNb + 1];  // diagonal block (+1: fewer conflicts)
-  __shared__ T col[kNb];         // scaled column j of the block
-  __shared__ T piv[kNb];         // sqrt of each updated pivot
-  const int nb = min(kNb, n - k0);
-  const int tid = threadIdx.x;
-
-  for (int e = tid; e < kNb * kNb; e += blockDim.x) {
-    const int r = e / kNb;
-    const int c = e - r * kNb;
-    if (r < nb && c <= r) D[r][c] = L[static_cast<size_t>(k0 + r) * n + k0 + c];
-  }
-  __syncthreads();
-
-  // the column loop on the diagonal block
-  for (int j = 0; j < nb; ++j) {
-    if (tid >= j && tid < nb) {
-      const T d = sqrt_rn(D[j][j]);
-      col[tid] = D[tid][j] / d;
-      if (tid == j) piv[j] = d;
+// The diagonal tile's column loop (factor) and an off-diagonal tile's row
+// solve against a factored diagonal tile D (solve) share one schedule:
+// warp w owns the columns c = w mod 8 of X, lane l row l.  v[0] is always
+// the warp's next column: a finished column goes back to X and the row
+// shifts, so every register index is fixed.  Step t: the owner of column t
+// scales it (factor: by the square root of its pivot, kept in pv with its
+// reciprocal in pr; solve: by pv[t]) and shares it through cs[t & 1]; one
+// barrier; every warp applies it to its columns c > t (factor: L[l][t]
+// L[c][t], rows l >= c; solve: X[l][t] D[c][t]).  `rows`: X's rows inside
+// the matrix (a zero numerator would send a division down its slow path).
+template <bool kFactor, typename T>
+__device__ __forceinline__ void column_steps(Tile<T>& X, const Tile<T>& D,
+                                             T (&pv)[kT], T (&pr)[kT],
+                                             T (&cs)[2][kT], int nb,
+                                             int rows) {
+  const int tx = threadIdx.x & 31;
+  const int ty = threadIdx.x >> 5;
+  T v[kRows];
+#pragma unroll
+  for (int q = 0; q < kRows; ++q) v[q] = X[tx][ty + q * kWarps];
+  __syncthreads();  // X is read before any column goes back to it
+  int done = 0;     // this warp's finished columns
+  for (int t = 0; t < nb; ++t) {
+    T p = T(1), r = T(1);  // the divisor and its reciprocal (div_rn.cuh)
+    if (!kFactor) {  // early: off the owner's chain
+      p = pv[t];
+      r = pr[t];
+    }
+    if (ty == (t & (kWarps - 1))) {
+      T x = v[0];
+      bool own = tx < rows;  // whether this lane's quotient is wanted
+      if (kFactor) {
+        p = sqrt_rn(__shfl_sync(kFull, x, t));
+        r = rcp_of(p);
+        if (tx == t) {
+          pv[t] = p;
+          pr[t] = r;
+        }
+        own = own && tx >= t;
+      }
+      // every lane divides, the others 1 by p: no division in a branch
+      const T quotient = div_rn(own ? x : T(1), p, r);
+      if (own) x = quotient;
+      cs[t & 1][tx] = x;
+      X[tx][t] = x;
+#pragma unroll
+      for (int q = 0; q + 1 < kRows; ++q) v[q] = v[q + 1];
+      ++done;
     }
     __syncthreads();
-    for (int e = tid; e < kNb * kNb; e += blockDim.x) {
-      const int r = e / kNb;
-      const int c = e - r * kNb;
-      if (r < nb && c <= r && c >= j) {
-        D[r][c] = c == j ? col[r]
-                         : sub_rn(D[r][c], mul_rn(col[r], col[c]));
+    const T xl = cs[t & 1][tx];
+#pragma unroll
+    for (int q = 0; q < kRows; ++q) {
+      const int c = ty + (done + q) * kWarps;
+      if (c < kT && c > t && (!kFactor || tx >= c)) {
+        v[q] = sub_rn(v[q], mul_rn(xl, kFactor ? cs[t & 1][c] : D[c][t]));
       }
     }
-    __syncthreads();
   }
+  __syncthreads();  // every column is back in X
+}
 
-  // rows below the block: a thread finishes row i left to right.  Rows
-  // exist only when the panel is full (nb == kNb), so the loops are fixed.
-  for (int i = k0 + kNb + tid; i < n; i += blockDim.x) {
-    // a compiler barrier: without it nvcc hoists all 528 reads of D out of
-    // this loop into registers and spills them
-    asm volatile("" ::: "memory");
-    T* row = L + static_cast<size_t>(i) * n + k0;
-    T v[kNb];
-#pragma unroll
-    for (int c = 0; c < kNb; ++c) v[c] = row[c];
-#pragma unroll
-    for (int c = 0; c < kNb; ++c) {
-      T acc = v[c];
-#pragma unroll
-      for (int t = 0; t < c; ++t) acc = sub_rn(acc, mul_rn(v[t], D[c][t]));
-      v[c] = acc / piv[c];
+__device__ __forceinline__ int load_acquire(const int* p) {
+  int v;
+  asm volatile("ld.acquire.gpu.global.b32 %0, [%1];"
+               : "=r"(v) : "l"(p) : "memory");
+  return v;
+}
+
+// Set a flag, a release at device scope: it orders the stores that came
+// before it, the block's own after a barrier, for a reader that acquires it.
+__device__ __forceinline__ void release(int* flag) {
+  asm volatile("st.release.gpu.global.b32 [%0], %1;" ::"l"(flag), "r"(1)
+               : "memory");
+}
+
+// Every thread's stores first (the barrier), then the flag.
+__device__ __forceinline__ void publish(int* flag) {
+  __syncthreads();
+  if (threadIdx.x == 0) release(flag);
+}
+
+// Thread 0 waits for the flag, then the block goes on together.
+__device__ __forceinline__ void wait_flag(const int* flag) {
+  if (threadIdx.x == 0) {
+    while (load_acquire(flag) == 0) {
     }
-#pragma unroll
-    for (int c = 0; c < kNb; ++c) row[c] = v[c];
   }
+  __syncthreads();
+}
 
-  for (int e = tid; e < kNb * kNb; e += blockDim.x) {
-    const int r = e / kNb;
-    const int c = e - r * kNb;
-    if (r < nb && c <= r) L[static_cast<size_t>(k0 + r) * n + k0 + c] = D[r][c];
+// Tile (I, P) of L, published by another block, into S (through L2);
+// zeros outside the matrix.
+template <typename T>
+__device__ __forceinline__ void load_tile(Tile<T>& S, const T* L, int n,
+                                          int I, int P) {
+  const int tx = threadIdx.x & 31;
+  const int c = P * kT + tx;
+  for (int a = threadIdx.x >> 5; a < kT; a += kWarps) {
+    const int i = I * kT + a;
+    S[a][tx] = i < n && c < n ? __ldcg(L + static_cast<size_t>(i) * n + c)
+                              : T(0);
   }
 }
 
-// Trailing update after the (full) panel at k0: tile (blockIdx.y,
-// blockIdx.x) of the lower triangle of [k0 + kNb, n)^2.
+// The same, as asynchronous copies (cp.async) that land while the block
+// goes on: __pipeline_wait_prior(0) and a barrier before S is read.
+template <typename T>
+__device__ __forceinline__ void load_tile_async(Tile<T>& S, const T* L, int n,
+                                                int I, int P) {
+  const int tx = threadIdx.x & 31;
+  const int c = P * kT + tx;
+  for (int a = threadIdx.x >> 5; a < kT; a += kWarps) {
+    const int i = I * kT + a;
+    if (i < n && c < n) {
+      __pipeline_memcpy_async(&S[a][tx], L + static_cast<size_t>(i) * n + c,
+                              sizeof(T));
+    } else {
+      S[a][tx] = T(0);
+    }
+  }
+  __pipeline_commit();
+}
+
+// S into tile (I, C) of L (a diagonal tile: zeros above its diagonal).
+template <typename T>
+__device__ __forceinline__ void store_tile(const Tile<T>& S, T* L, int n,
+                                           int I, int C) {
+  const int tx = threadIdx.x & 31;
+  for (int a = threadIdx.x >> 5; a < kT; a += kWarps) {
+    const int i = I * kT + a, c = C * kT + tx;
+    if (i < n && c < n) {
+      L[static_cast<size_t>(i) * n + c] = I == C && tx > a ? T(0) : S[a][tx];
+    }
+  }
+}
+
+// Zeros into tile (C, I) of L, the mirror of a lower tile (I, C), I > C.
+template <typename T>
+__device__ __forceinline__ void zero_mirror(T* L, int n, int I, int C) {
+  const int tx = threadIdx.x & 31;
+  for (int a = threadIdx.x >> 5; a < kT; a += kWarps) {
+    if (I * kT + tx < n) L[static_cast<size_t>(C * kT + a) * n + I * kT + tx] = T(0);
+  }
+}
+
+// Load tile (I, C) of H's lower triangle into S (zeros above it).
+template <typename T>
+__device__ __forceinline__ void load_h(Tile<T>& S, const T* H, int n, int I,
+                                       int C) {
+  const int tx = threadIdx.x & 31;
+  for (int a = threadIdx.x >> 5; a < kT; a += kWarps) {
+    const int i = I * kT + a, c = C * kT + tx;
+    S[a][tx] = i < n && c <= i ? H[static_cast<size_t>(i) * n + c] : T(0);
+  }
+}
+
+// Apply panels P = 0 .. p1 - 1 to tile (I, C) in A, each once tiles
+// (I, P) and (C, P) are published: A[a][b] -= L[i][t] L[c][t].
+template <typename T>
+__device__ __forceinline__ void update_panels(Tile<T>& A, Tile<T>& Si,
+                                              Tile<T>& Sc, const T* L,
+                                              const int* flags, int n, int nt,
+                                              int I, int C, int p1) {
+  for (int P = 0; P < p1; ++P) {
+    wait_flag(flags + I * nt + P);
+    if (I != C) wait_flag(flags + C * nt + P);
+    load_tile(Si, L, n, I, P);
+    if (I != C) {
+      load_tile(Sc, L, n, C, P);
+      __syncthreads();
+      update_tile(A, Si, Sc);
+    } else {
+      __syncthreads();
+      update_tile(A, Si, Si);
+    }
+    __syncthreads();
+  }
+}
+
+// Jobs.  Ticket 0 is the walker, the one block that runs the critical path
+// along the diagonal: for K = 0, 1, ..., it takes tile (K, K) with every
+// update but panel K - 1's already applied, applies that one from tile
+// (K, K - 1), which it solved itself and still holds, factors the tile,
+// then solves tile (K + 1, K), also handed over with every update but its
+// last applied, so no flag round trip and no reload lies between two
+// diagonal tiles.  Tickets 1, 2, ... are the rest, in this order for
+// C = 0, 1, ...: the tiles (I, C), I >= C + 2, which apply their updates,
+// wait for diagonal tile C and solve themselves; then tile (C + 2, C + 1)
+// with panels 0 .. C applied (for the walker's solve at K = C + 1, flag at
+// the upper position (C + 1, C + 2)); then tile (C + 2, C + 2) likewise
+// (for its factor at K = C + 2, flag at (C, C + 2)).  Each job waits only
+// for jobs earlier in this order or for walker steps whose own inputs come
+// earlier still, so the lowest unfinished ticket can always run: progress
+// needs no co-residency and no scheduling order.
 template <typename T>
 __global__ void __launch_bounds__(kTileThreads)
-chol_single_update_kernel(T* __restrict__ L, int n, int k0) {
-  const int tr = blockIdx.y;
-  const int tc = blockIdx.x;
-  if (tc > tr) return;
-  __shared__ T Pr[kNb][kNb + 1];  // L[r0 + a][k0 + t]
-  __shared__ T Pc[kNb][kNb + 1];  // L[c0 + b][k0 + t]
-  const int r0 = k0 + kNb + tr * kNb;
-  const int c0 = k0 + kNb + tc * kNb;
+chol_single_tiles_kernel(const T* __restrict__ H, T* __restrict__ L,
+                         int* __restrict__ scratch, int n) {
+  // a job's tiles: A, the tile being computed; Si, L tile (I, P); Sc, L
+  // tile (C, P) or the diagonal tile (C, C).  The walker's: diagonal tiles
+  // and sub-diagonal tiles, each by step parity.
+  __shared__ Tile<T> tiles[4];
+  Tile<T>& A = tiles[0];
+  Tile<T>& Si = tiles[1];
+  Tile<T>& Sc = tiles[2];
+  __shared__ T pv[kT];    // the diagonal tile's square roots
+  __shared__ T pr[kT];    // and their reciprocals (div_rn.cuh)
+  __shared__ T cs[2][kT]; // the column just scaled, by step parity
+  __shared__ int ticket;
+  const int nt = tiles_of(n);
+  int* flags = scratch + 1;     // scratch[0]: the ticket counter
+  T* piv = reinterpret_cast<T*>(scratch + roots_offset(nt));
+  const int tid = threadIdx.x;
 
-  for (int e = threadIdx.x; e < kNb * kNb; e += blockDim.x) {
-    const int a = e / kNb;
-    const int t = e - a * kNb;
-    Pr[a][t] = r0 + a < n ? L[static_cast<size_t>(r0 + a) * n + k0 + t] : T(0);
-    Pc[a][t] = c0 + a < n ? L[static_cast<size_t>(c0 + a) * n + k0 + t] : T(0);
-  }
+  if (tid == 0) ticket = scratch ? atomicAdd(scratch, 1) : 0;
   __syncthreads();
-
-  for (int e = threadIdx.x; e < kNb * kNb; e += blockDim.x) {
-    const int a = e / kNb;
-    const int b = e - a * kNb;
-    const int i = r0 + a;
-    const int c = c0 + b;
-    if (i < n && c <= i) {
-      T* p = L + static_cast<size_t>(i) * n + c;
-      T acc = *p;
-#pragma unroll 8
-      for (int t = 0; t < kNb; ++t) {
-        acc = sub_rn(acc, mul_rn(Pr[a][t], Pc[b][t]));
+  if (ticket == 0) {  // the walker
+    // a tile's inputs are copied in while the block works on the one
+    // before, when the job that prepares them has already published
+    __shared__ int seen;
+    bool have_a = false;   // A[K & 1] already holds tile (K, K)
+    for (int K = 0; K < nt; ++K) {
+      const int c0 = K * kT;
+      Tile<T>& D = tiles[K & 1];         // tile (K, K)
+      Tile<T>& Sp = tiles[2 + (K & 1)];  // tile (K + 1, K)
+      Tile<T>& Sq = tiles[3 - (K & 1)];  // tile (K, K - 1), solved last step
+      if (K < 2) {
+        load_h(D, H, n, K, K);
+      } else if (!have_a) {
+        wait_flag(flags + (K - 2) * nt + K);
+        load_tile(D, L, n, K, K);
       }
-      *p = acc;
+      __pipeline_wait_prior(0);
+      __syncthreads();
+      if (K > 0) update_tile(D, Sq, Sq);  // panel K - 1
+      __syncthreads();
+      const int nb = min(kT, n - c0);
+      column_steps<true>(D, D, pv, pr, cs, nb, nb);
+      store_tile(D, L, n, K, K);
+      if (K + 1 == nt) break;  // (one tile: no scratch, nothing to publish)
+      if (tid < nb) piv[c0 + tid] = pv[tid];
+      // One barrier, then three threads of three warps at once: the
+      // release of tile (K, K), the wait for tile (K + 1, K) and a look at
+      // tile (K + 1, K + 1)'s flag; one more barrier, and the copies.
+      __syncthreads();
+      if (tid == 2 * kT) release(flags + K * nt + K);
+      if (K > 0 && tid == 0) {
+        while (load_acquire(flags + K * nt + K + 1) == 0) {
+        }
+      }
+      if (tid == kT) {
+        seen = K > 0 ? load_acquire(flags + (K - 1) * nt + K + 1) : 0;
+      }
+      __syncthreads();
+      if (K == 0) {
+        load_h(Sp, H, n, 1, 0);
+      } else {
+        load_tile(Sp, L, n, K + 1, K);
+      }
+      have_a = seen != 0;
+      if (have_a) load_tile_async(tiles[(K + 1) & 1], L, n, K + 1, K + 1);
+      __syncthreads();
+      column_steps<false>(Sp, D, pv, pr, cs, kT, n - c0 - kT);
+      store_tile(Sp, L, n, K + 1, K);
+      zero_mirror(L, n, K + 1, K);
+      publish(flags + (K + 1) * nt + K);
     }
+    return;
+  }
+  for (;;) {
+    int k = ticket - 1;  // job k -> its kind and tile
+    int I = -1, C = 0, kind = 0;  // 0: full, 1: sub-diagonal, 2: diagonal
+    for (; C < nt; ++C) {
+      const int full = max(0, nt - C - 2);
+      if (k < full) {
+        I = C + 2 + k;
+        break;
+      }
+      k -= full;
+      if (C + 2 < nt) {
+        if (k < 2) {
+          I = C + 2;
+          kind = 1 + k;
+          break;
+        }
+        k -= 2;
+      }
+    }
+    if (I < 0) break;  // every job is taken
+    if (kind == 1) {          // tile (C + 2, C + 1), panels 0 .. C
+      load_h(A, H, n, I, C + 1);
+      __syncthreads();
+      update_panels(A, Si, Sc, L, flags, n, nt, I, C + 1, C + 1);
+      store_tile(A, L, n, I, C + 1);
+      publish(flags + (C + 1) * nt + I);
+    } else if (kind == 2) {   // tile (C + 2, C + 2), panels 0 .. C
+      load_h(A, H, n, I, I);
+      __syncthreads();
+      update_panels(A, Si, Sc, L, flags, n, nt, I, I, C + 1);
+      store_tile(A, L, n, I, I);
+      publish(flags + C * nt + I);
+    } else {                  // tile (I, C), I >= C + 2: all of it
+      const int r0 = I * kT, c0 = C * kT;
+      load_h(A, H, n, I, C);
+      zero_mirror(L, n, I, C);
+      __syncthreads();
+      update_panels(A, Si, Sc, L, flags, n, nt, I, C, C);
+      __syncthreads();
+      wait_flag(flags + C * nt + C);
+      load_tile(Sc, L, n, C, C);
+      if (tid < kT) {
+        const T root = __ldcg(piv + c0 + tid);
+        pv[tid] = root;
+        pr[tid] = rcp_of(root);
+      }
+      __syncthreads();
+      column_steps<false>(A, Sc, pv, pr, cs, kT, n - r0);
+      store_tile(A, L, n, I, C);
+      publish(flags + I * nt + C);
+    }
+    __syncthreads();  // all have read the ticket before thread 0 takes one
+    if (tid == 0) ticket = atomicAdd(scratch, 1);
+    __syncthreads();
   }
 }
 
 template <typename T>
-int launch(const T* H, T* L, int n, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n <= one_block_max_n<T>()) {
-    const size_t smem = (static_cast<size_t>(n) * n + n) * sizeof(T);
-    cudaError_t err = cudaFuncSetAttribute(
-        chol_single_small_kernel<T>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-    chol_single_small_kernel<T><<<1, kSmallThreads, smem, s>>>(H, L, n);
-    return static_cast<int>(cudaGetLastError());
-  }
-  const size_t nn = static_cast<size_t>(n) * n;
-  const int init_blocks = static_cast<int>((nn + 1023) / 1024);
-  chol_single_init_kernel<T><<<init_blocks < 1024 ? init_blocks : 1024, 1024,
-                               0, s>>>(H, L, n);
-  cudaError_t err = cudaGetLastError();
+int launch(const T* H, T* L, int* scratch, int n, void* stream) {
+  // the dataflow's grid, once per process and device: the blocks that fit
+  // the card at once (more would only wait for a ticket)
+  static int grid[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  for (int k0 = 0; k0 < n; k0 += kNb) {
-    chol_single_panel_kernel<T><<<1, kPanelThreads, 0, s>>>(L, n, k0);
-    err = cudaGetLastError();
+  if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
+  if (grid[dev] == 0) {
+    int per_sm = 0, sms = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, chol_single_tiles_kernel<T>, kTileThreads, 0);
     if (err != cudaSuccess) return static_cast<int>(err);
-    const int rest = n - k0 - kNb;
-    if (rest > 0) {
-      const int tiles = (rest + kNb - 1) / kNb;
-      chol_single_update_kernel<T><<<dim3(tiles, tiles), kTileThreads, 0, s>>>(
-          L, n, k0);
-      err = cudaGetLastError();
-      if (err != cudaSuccess) return static_cast<int>(err);
-    }
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    grid[dev] = per_sm * sms > 0 ? per_sm * sms : 1;
   }
-  return 0;
+  const int nt = tiles_of(n);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (nt > 1) {  // the ticket and the flags start at zero in every call
+    if (scratch == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+    err = cudaMemsetAsync(scratch, 0, roots_offset(nt) * sizeof(int), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  const int tiles = nt * (nt + 1) / 2;  // more blocks than jobs: none
+  chol_single_tiles_kernel<T><<<tiles < grid[dev] ? tiles : grid[dev],
+                                kTileThreads, 0, s>>>(H, L, scratch, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// H, L: (n, n) row-major on the device; L may not alias H.  Returns the
-// CUDA error code of the first launch that failed (0 on success).
-extern "C" int chol_single_f64(const double* H, double* L, int n,
-                               void* stream) {
-  return launch(H, L, n, stream);
+// The ints of scratch memory chol_single_f64 / _f32 take at order n (8-byte
+// aligned device memory; its contents need not be set): 0 for n <= 32,
+// where the kernel takes none.
+extern "C" int chol_single_scratch_ints(int n) {
+  const int nt = tiles_of(n);
+  return nt > 1 ? roots_offset(nt) + 2 * n : 0;
 }
 
-extern "C" int chol_single_f32(const float* H, float* L, int n, void* stream) {
-  return launch(H, L, n, stream);
+// H, L: (n, n) row-major on the device; L may not alias H.  scratch:
+// chol_single_scratch_ints(n) ints of device memory, which the call zeroes
+// in part on the stream before its kernel; may be null for n <= 32.
+// Returns the CUDA error code of the launch (0 on success).
+extern "C" int chol_single_f64(const double* H, double* L, int* scratch,
+                               int n, void* stream) {
+  return launch(H, L, scratch, n, stream);
+}
+
+extern "C" int chol_single_f32(const float* H, float* L, int* scratch, int n,
+                               void* stream) {
+  return launch(H, L, scratch, n, stream);
 }

@@ -33,11 +33,12 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
     "chol_batched": (_P, _P, _I, _I, _P),
     "tri_pair_batched": (_P, _P, _P, _I, _I, _I, _P),
-    "chol_single": (_P, _P, _I, _P),
+    "chol_single": (_P, _P, _P, _I, _P),
     "tri_pair_single": (_P, _P, _P, _I, _I, _P),
 }
-# entry point (the C symbol) -> (source name, argtypes); every entry point
-# returns the launch's cudaError_t as an int.
+# entry point (the C symbol) -> (source name, argtypes); every kernel or
+# check entry point returns the launch's cudaError_t as an int, every query
+# its answer.
 KERNELS = {
     f"{name}_{t}": (name, args)
     for name, args in _SIGNATURES.items() for t in ("f64", "f32")
@@ -48,7 +49,16 @@ KERNELS.update({
     "probe_write": ("probes", (_P, _P, _I, _I, _P)),
     "probe_fwd": ("probes", (_P, _P, _P, _I, _I, _P)),
 })
-SOURCES = tuple(dict.fromkeys(src for src, _ in KERNELS.values()))
+# layout queries: what a kernel's source alone knows, asked by its wrapper
+QUERIES = {
+    "chol_single_scratch_ints": ("chol_single", (_I,)),
+    "tri_pair_single_max_n": ("tri_pair_single", (_I,)),
+}
+# checks the card runs on the kernels' building blocks (csrc/div_rn.cu)
+CHECKS = {f"div_rn_{t}": ("div_rn", (_P, _P, _P, ctypes.c_long, _P))
+          for t in ("f64", "f32")}
+ENTRY_POINTS = {**KERNELS, **QUERIES, **CHECKS}
+SOURCES = tuple(dict.fromkeys(src for src, _ in ENTRY_POINTS.values()))
 
 _loaded: dict = {}   # entry point -> loaded C function
 
@@ -108,10 +118,11 @@ def build(sources=SOURCES) -> tuple[float, str]:
 
 
 def kernel(name: str):
-    """The C entry point `name`, its source built and loaded at first use."""
+    """The C entry point `name` (a kernel, a query or a check), its source
+    built and loaded at first use."""
     fn = _loaded.get(name)
     if fn is None:
-        source, argtypes = KERNELS[name]
+        source, argtypes = ENTRY_POINTS[name]
         _, out = _target(source)
         if not out.exists():
             build((source,))

@@ -39,12 +39,15 @@ never fused into an FMA, and the card's kernels use `__fmul_rn` /
 for bit in both types.  The `*_launches` counters count kernel-wrapper
 launches (never plain calls), the f64 kernels' under the plain names and
 the f32 kernels' under `*_launches_f32`, so a run can show which kernels
-it went through.  One launch of `chol_single` above n = 169 (f64) or 240
-(f32) is one call of its C entry point, which enqueues 2 ceil(n / 32) CUDA
-kernels (csrc/chol_single.cu).
+it went through.  Every launch is one CUDA kernel; above n = 32
+`chol_single`'s entry point also zeroes the tile flags in a small scratch
+buffer the wrapper allocates (csrc/chol_single.cu), one memset beside the
+kernel.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -102,10 +105,9 @@ def tri_pair_batched_plain(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
 
 def chol_single_plain(H: torch.Tensor) -> torch.Tensor:
     """The column loop of `chol_batched_plain` on one (n, n) matrix.  It is
-    also the plain version of the kernel's blocked regime (n > 169 in f64,
-    n > 240 in f32): the
-    blocked order applies to every entry the same rounded operations in the
-    same order (csrc/chol_single.cu)."""
+    the plain version of the kernel's tile dataflow, which applies to every
+    entry the same rounded operations in the same order
+    (csrc/chol_single.cu)."""
     return chol_batched_plain(H[None])[0]
 
 
@@ -147,6 +149,15 @@ def _smem_check(name: str, n: int, extra: int, itemsize: int):
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+@functools.lru_cache(maxsize=None)
+def _query(name: str, arg: int) -> int:
+    """A layout query of a kernel's source (csrc/*.cu), which alone knows
+    its tiles and shared memory."""
+    from socp_tpu_torch.ops import _build
+
+    return _build.kernel(name)(arg)
 
 
 def _launch(name: str, t: torch.Tensor, *args):
@@ -210,7 +221,13 @@ def chol_single(H: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(H)
     if n == 0:
         return L
-    _launch("chol_single", H, H.data_ptr(), L.data_ptr(), n)
+    # the tile flags' scratch (none for one tile); the entry point zeroes
+    # what must start at zero on the stream before its kernel
+    ints = _query("chol_single_scratch_ints", n)
+    scratch = (torch.empty(ints, dtype=torch.int32, device=H.device)
+               if ints else None)
+    _launch("chol_single", H, H.data_ptr(), L.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), n)
     return L
 
 
@@ -225,11 +242,11 @@ def tri_pair_single(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     _check_pair("tri_pair_single", L, rhs)
     if L.device.type == "cpu":
         return tri_pair_single_plain(L, rhs)
-    if 2 * n * L.element_size() > SMEM_LIMIT:
+    max_n = _query("tri_pair_single_max_n", L.element_size())
+    if n > max_n:
         raise ValueError(
-            f"tri_pair_single: n={n} is above "
-            f"{SMEM_LIMIT // (2 * L.element_size())} for {L.dtype}: the kernel "
-            "keeps the n pivots and one rhs column in shared memory")
+            f"tri_pair_single: n={n} is above {max_n} for {L.dtype}: the "
+            "kernel keeps one rhs column in shared memory")
     X = torch.empty_like(rhs)
     if X.numel() == 0:
         return X

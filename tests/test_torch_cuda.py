@@ -6,9 +6,10 @@ import.  On the card:
 
     python -m pytest -o addopts='' -m cuda tests/test_torch_cuda.py -q
 
-Kernels are held to their plain PyTorch versions: the f64 instances at the
-reference's kernel tolerances (tests/test_pallas.py:90-129), the f32
-instances and the probes bit for bit; the card path of the solver is held
+Kernels are held to their plain PyTorch versions: the batched f64
+instances at the reference's kernel tolerances (tests/test_pallas.py:
+90-129), the single-instance kernels, the f32 instances and the probes bit
+for bit; the card path of the solver is held
 to the JAX reference (run on the CPU) as tests/test_torch_solve.py and
 tests/test_torch_f32factor.py hold the CPU path.
 """
@@ -83,35 +84,132 @@ def test_kernels_refuse_what_they_cannot_hold(card):
     assert chol.chol_launches == before
 
 
-@pytest.mark.parametrize("n", [1, 5, 50, 169, 170, 333, 500, 768, 1000])
+# n: both sides of the panel and tile edges (32) and of the one-block
+# limits of the kernels before (169 in f64, 240 in f32), and the path's
+# sizes; k: both sides of the pair kernel's 4 columns a pass, and 8
+SINGLE_NS = [1, 2, 31, 32, 33, 64, 65, 169, 170, 240, 241, 500, 768, 1000]
+SINGLE_KS = [1, 5, 8, 9]
+
+
+@pytest.mark.parametrize("n", SINGLE_NS)
 def test_chol_single_kernel_matches_plain(card, n):
-    """n <= 169 runs the one-block kernel, larger n the blocked one; both
-    round as the plain column loop does."""
+    """One tile (the walker alone) and the tile dataflow round as the plain
+    column loop does: bit for bit."""
     H = torch.as_tensor(_spd(n, 1, n)[0], device=card)
     before = chol.chol_single_launches
     L = chol.chol_single(H)
     assert chol.chol_single_launches == before + 1
-    _close(L, chol.chol_single_plain(H), 1e-9, 1e-11)
+    assert torch.equal(L, chol.chol_single_plain(H))
 
 
-@pytest.mark.parametrize("n,k", [(1, 1), (5, 1), (50, 1), (50, 5), (50, 11),
-                                 (333, 3), (500, 1), (500, 3), (768, 1),
-                                 (768, 3)])
+@pytest.mark.parametrize("n,k", [(n, k) for n in SINGLE_NS for k in SINGLE_KS])
 def test_tri_pair_single_kernel_matches_plain(card, n, k):
-    """Every (n, k) of configs 1 and 2 (p = 5: (50, 5), (5, 1)), and more;
-    k = 11 takes two passes over the rhs columns (8 a pass)."""
+    """Every (n, k) of configs 1 and 2 (p = 5: (50, 5), (5, 1)) lies among
+    these; k = 5, 8 and 9 take two or three passes over the rhs columns (4
+    a pass)."""
     L = chol.chol_single(torch.as_tensor(_spd(n + k, 1, n)[0], device=card))
     rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((n, k)),
                           device=card)
     before = chol.tri_pair_single_launches
     X = chol.tri_pair_single(L, rhs)
     assert chol.tri_pair_single_launches == before + 1
-    _close(X, chol.tri_pair_single_plain(L, rhs), 1e-10, 1e-12)
+    assert torch.equal(X, chol.tri_pair_single_plain(L, rhs))
 
 
-@pytest.mark.parametrize("n", [102, 500])
+def _single_inputs(dtype, n, k, card, seed=None):
+    seed = n if seed is None else seed
+    if dtype == torch.float64:
+        H = _spd(seed, 1, n)[0]
+    else:
+        H = _spd32(seed, 1, n)[0]
+    rhs = np.random.default_rng(k).standard_normal((n, k))
+    return (torch.as_tensor(H, dtype=dtype, device=card),
+            torch.as_tensor(rhs, dtype=dtype, device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", [50, 500])
+def test_single_kernels_back_to_back_calls_give_the_same_bits(card, dtype, n):
+    """Calls queued on one stream with no sync between them: the tile
+    dataflow's flags are per call, so no call reads another's."""
+    H, rhs = _single_inputs(dtype, n, 1, card)
+    Ls = [chol.chol_single(H) for _ in range(3)]
+    Xs = [chol.tri_pair_single(L, rhs) for L in Ls]
+    torch.cuda.synchronize()
+    for L, X in zip(Ls[1:], Xs[1:]):
+        assert torch.equal(L, Ls[0]) and torch.equal(X, Xs[0])
+    assert torch.equal(Ls[0], chol.chol_single_plain(H))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_single_kernels_replay_in_a_cuda_graph(card, dtype):
+    """chol_single then tri_pair_single at n = 500 captured by
+    torch.cuda.graph (the scratch memset and both launches), replayed on
+    the captured inputs and on new ones written into them: bit-equal to the
+    plain versions."""
+    H, rhs = _single_inputs(dtype, 500, 1, card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up, as torch asks
+        for _ in range(2):
+            chol.tri_pair_single(chol.chol_single(H), rhs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        L = chol.chol_single(H)
+        X = chol.tri_pair_single(L, rhs)
+    for seed in (None, 11):
+        if seed is not None:
+            H2, rhs2 = _single_inputs(dtype, 500, 1, card, seed=seed)
+            H.copy_(H2)
+            rhs.copy_(rhs2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(L, chol.chol_single_plain(H))
+        assert torch.equal(X, chol.tri_pair_single_plain(L, rhs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_div_rn_is_the_cards_division(card, dtype):
+    """div_rn (csrc/div_rn.cuh), the division on the single kernels'
+    chains, returns x / p bit for bit: random bit patterns (zeros,
+    subnormals, infinities, NaNs) and normal pairs across the exponent
+    range, both signs."""
+    from socp_tpu_torch.ops import _build
+
+    size = torch.finfo(dtype).bits // 8
+    g = torch.Generator(device=card)
+    g.manual_seed(3)
+    count = 1 << 20
+
+    def bits():
+        return torch.randint(0, 256, (count * size,), device=card,
+                             generator=g, dtype=torch.uint8).view(dtype)
+
+    def normal():
+        top = 1000 if size == 8 else 125
+        e = torch.randint(-top, top, (count,), device=card, generator=g)
+        m = torch.rand(count, device=card, generator=g, dtype=torch.float64)
+        s = torch.randint(0, 2, (count,), device=card, generator=g) * 2 - 1
+        return (s * (1 + m) * torch.pow(2.0, e.double())).to(dtype)
+
+    x, p = torch.cat([bits(), normal()]), torch.cat([bits(), normal()])
+    out = torch.empty_like(x)
+    entry = _build.kernel("div_rn_f64" if size == 8 else "div_rn_f32")
+    assert entry(x.data_ptr(), p.data_ptr(), out.data_ptr(), x.numel(),
+                 torch.cuda.current_stream().cuda_stream) == 0
+    want = x / p
+    ints = torch.int64 if size == 8 else torch.int32
+    same = (out.view(ints) == want.view(ints)) | (out.isnan() & want.isnan())
+    assert bool(same.all())
+
+
+@pytest.mark.parametrize("n", [20, 102, 500])
 def test_single_non_pd_gives_non_finite_factor(card, n):
+    """One tile, then the dataflow; the call returns (no tile waits forever
+    on a NaN pivot's flag)."""
     L = chol.chol_single(torch.as_tensor(_spd(7, 1, n, neg=True)[0], device=card))
+    torch.cuda.synchronize()
     assert not bool(torch.isfinite(L).all())
 
 
@@ -199,9 +297,9 @@ def test_f32_tri_pair_batched_bit_equal_to_plain(card, B, n, k):
     assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
 
 
-@pytest.mark.parametrize("n", [1, 50, 128, 240, 241, 500, 768])
+@pytest.mark.parametrize("n", SINGLE_NS)
 def test_f32_chol_single_bit_equal_to_plain(card, n):
-    """n <= 240 runs the one-block kernel, larger n the blocked one."""
+    """As the f64 instance: one tile, then the tile dataflow."""
     H = torch.as_tensor(_spd32(n, 1, n)[0], device=card)
     before = chol.chol_single_launches_f32
     L = chol.chol_single(H)
@@ -209,7 +307,7 @@ def test_f32_chol_single_bit_equal_to_plain(card, n):
     assert torch.equal(L, chol.chol_single_plain(H))
 
 
-@pytest.mark.parametrize("n,k", [(5, 1), (50, 5), (128, 1), (500, 1), (768, 3)])
+@pytest.mark.parametrize("n,k", [(n, k) for n in SINGLE_NS for k in SINGLE_KS])
 def test_f32_tri_pair_single_bit_equal_to_plain(card, n, k):
     L = chol.chol_single(torch.as_tensor(_spd32(n + k, 1, n)[0], device=card))
     rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((n, k)),
@@ -220,9 +318,10 @@ def test_f32_tri_pair_single_bit_equal_to_plain(card, n, k):
     assert torch.equal(X, chol.tri_pair_single_plain(L, rhs))
 
 
-@pytest.mark.parametrize("n", [102, 500])
+@pytest.mark.parametrize("n", [20, 102, 500])
 def test_f32_non_pd_gives_non_finite_factor(card, n):
     L = chol.chol_single(torch.as_tensor(_spd32(7, 1, n, neg=True)[0], device=card))
+    torch.cuda.synchronize()
     assert not bool(torch.isfinite(L).all())
 
 

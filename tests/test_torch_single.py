@@ -71,7 +71,7 @@ def test_tri_pair_single_plain_matches_pallas(n, k):
 
 
 def test_single_plain_versions_match_numpy_at_n200():
-    """n = 200 is in the kernel's blocked regime (n > 169)."""
+    """n = 200: seven tiles of the kernel's dataflow."""
     rng = np.random.default_rng(200)
     H = _spd(rng, 200)
     L = chol.chol_single(torch.as_tensor(H))
@@ -84,40 +84,98 @@ def test_single_plain_versions_match_numpy_at_n200():
     np.testing.assert_allclose(x.numpy(), ref, rtol=1e-10, atol=1e-12)
 
 
-def _blocked_order(H: torch.Tensor, nb: int = 32) -> torch.Tensor:
-    """csrc/chol_single.cu's blocked factor (n > 169), step for step: per
-    panel, the column loop on the nb x nb diagonal block, the rows below
-    finished left to right, then the trailing update one panel column at a
-    time per entry."""
+# ---- the kernels' schedules, step for step (csrc/chol_single.cu and
+# csrc/tri_pair_single.cu): each must round every entry as the plain loops do
+
+
+def _tile_order(H: torch.Tensor, nb: int = 32) -> torch.Tensor:
+    """chol_single's tile dataflow, column of tiles by column of tiles (the
+    kernel's blocks may finish tiles in another order, but every entry sees
+    the same steps): tile (I, C) applies panels P < C one column t at a
+    time, then the diagonal tile runs the column loop and keeps its square
+    roots, and a tile below it solves its rows right-looking against them."""
     n = H.shape[0]
-    L = torch.tril(H)
-    for k0 in range(0, n, nb):
-        k1 = min(k0 + nb, n)
-        D = L[k0:k1, k0:k1].clone()
-        piv = torch.empty(k1 - k0, dtype=H.dtype)
-        for j in range(k1 - k0):
-            piv[j] = torch.sqrt(D[j, j])
-            col = D[j:, j] / piv[j]
-            D[j:, j] = col
-            D[j + 1:, j + 1:] -= torch.tril(col[1:, None] * col[None, 1:])
-        L[k0:k1, k0:k1] = D
-        R = L[k1:, k0:k1]                       # rows below, in place
-        for c in range(k1 - k0):
-            acc = R[:, c].clone()
-            for t in range(c):
-                acc = acc - R[:, t] * D[c, t]
-            R[:, c] = acc / piv[c]
-        T = L[k1:, k1:]                         # trailing update, in place
-        for t in range(k1 - k0):
-            T -= torch.tril(R[:, t, None] * R[None, :, t])
+    nt = -(-n // nb)
+    L = torch.zeros_like(H)
+    piv = torch.zeros(n, dtype=H.dtype)
+    for C in range(nt):
+        for I in range(C, nt):
+            rs, cs = slice(I * nb, min(n, I * nb + nb)), slice(C * nb, min(n, C * nb + nb))
+            A = H[rs, cs].clone()
+            for P in range(C):
+                ps = slice(P * nb, P * nb + nb)
+                Li, Lc = L[rs, ps], L[cs, ps]
+                for t in range(nb):
+                    A -= Li[:, t, None] * Lc[None, :, t]
+            if I == C:
+                for t in range(A.shape[0]):
+                    piv[C * nb + t] = torch.sqrt(A[t, t])
+                    A[t:, t] = A[t:, t] / piv[C * nb + t]
+                    A[t + 1:, t + 1:] -= A[t + 1:, t, None] * A[None, t + 1:, t]
+                L[rs, cs] = torch.tril(A)
+            else:
+                D = L[cs, cs]
+                for t in range(nb):
+                    A[:, t] = A[:, t] / piv[C * nb + t]
+                    A[:, t + 1:] -= A[:, t, None] * D[None, t + 1:, t]
+                L[rs, cs] = A
     return L
 
 
-def test_blocked_order_is_the_plain_order():
-    """The blocked kernel and the plain column loop round every entry alike,
-    so the card check of the blocked regime can be bit for bit."""
-    H = torch.as_tensor(_spd(np.random.default_rng(5), 203))
-    assert torch.equal(_blocked_order(H), chol.chol_single_plain(H))
+def _pair_order(L: torch.Tensor, rhs: torch.Tensor, nb: int = 32) -> torch.Tensor:
+    """tri_pair_single's panels: per panel, the chain's 32 steps on the
+    panel's own rows, then the rows beyond it take the panel's quotients
+    in step order; forward from the top, backward from the bottom."""
+    n = L.shape[0]
+    X = rhs.clone()
+    diag = torch.diagonal(L)[:, None]
+    for j0 in range(0, n, nb):
+        j1 = min(n, j0 + nb)
+        qs = []
+        for j in range(j0, j1):
+            q = X[j] / diag[j]
+            X[j + 1:j1] -= L[j + 1:j1, j, None] * q
+            qs.append(q)
+        for t, q in enumerate(qs):
+            X[j1:] -= L[j1:, j0 + t, None] * q
+    X = X / diag
+    for b in range(n, 0, -nb):
+        a = max(0, b - nb)
+        qs = []
+        for j in range(b - 1, a - 1, -1):
+            q = X[j] / diag[j]
+            X[a:j] -= L[j, a:j, None] * q
+            qs.append(q)
+        for t, q in enumerate(qs):
+            X[:a] -= L[b - 1 - t, :a, None] * q
+    return X / diag
+
+
+SCHEDULE_CASES = (
+    [("tiles", d, n, 0) for d in ("f64", "f32")
+     for n in (1, 2, 31, 32, 33, 65, 203)]
+    + [("pair", d, n, k) for d in ("f64", "f32") for n in (31, 32, 33, 65, 203)
+       for k in (1, 5)])
+
+
+@pytest.mark.parametrize("schedule,dtype,n,k", SCHEDULE_CASES)
+def test_kernel_schedule_is_the_plain_order(schedule, dtype, n, k):
+    """Both kernels' schedules and the plain loops round every entry alike,
+    so the card checks both kernels bit for bit.  n straddles the panel and
+    tile edges (32)."""
+    rng = np.random.default_rng(n + k)
+    if dtype == "f64":
+        H = torch.as_tensor(_spd(rng, n))
+    else:
+        H = torch.as_tensor(_spd(rng, n, kappa=1e4), dtype=torch.float32)
+    if schedule == "pair":
+        L = chol.chol_single_plain(H)
+        rhs = torch.as_tensor(rng.standard_normal((n, k)), dtype=H.dtype)
+        got, want = _pair_order(L, rhs), chol.tri_pair_single_plain(L, rhs)
+    else:
+        got, want = _tile_order(H), chol.chol_single_plain(H)
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(got, want)
 
 
 def test_cpu_tensors_take_the_plain_path_and_launch_nothing():
