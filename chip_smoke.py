@@ -7,9 +7,11 @@ Phases, each printing one JSON line to stdout:
   1. device   the card's name; nvidia-smi's "name, power.limit" line.
   2. build    nvcc builds every kernel from socp_tpu_torch/csrc/ (seconds).
   3. kernels  each batched CUDA kernel against its plain PyTorch version on
-              the card, on f64 SPD batches (kappa = 1e8) made from a numpy
-              seed, at the main path's shapes and two others; a matrix that
-              is not positive definite must give a non-finite factor.
+              the card, bit for bit, on f64 SPD batches (kappa = 1e8) made
+              from a numpy seed, at the main path's shapes and across the
+              micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and
+              3; a matrix that is not positive definite must give a
+              non-finite factor.
               Timed two ways (`timed`): call_ms, CUDA events around one
               call, host work included (median of 15), and kernel_ms, the
               device time of the kernels one call enqueues, from
@@ -46,8 +48,8 @@ Phases, each printing one JSON line to stdout:
               plain versions, bit for bit, on f32 SPD batches with kappa =
               1e4 (f32 cannot factor the f64 phases' kappa = 1e8 matrices:
               its rounding, 6e-8 relative, times 1e8 exceeds the smallest
-              pivot) made from a numpy seed: batched at n = 1 ... 240 (n <= 102
-              at B = 4096, n = 169 and 240 at B = 256) with k = 1, 3, single
+              pivot) made from a numpy seed: batched at n = 1 ... 240
+              (F32_BATCHED) with k = 1, 3, single
               at n = 1 ... 1000 with k = 1, 4, 5; non-PD inputs give
               non-finite factors; timed as phase 3 at B = 4096, n = 102 and
               single at config 2's shapes in this mode and P1's n = 128.
@@ -99,8 +101,6 @@ HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP64_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP64 tensor core (the
                                     # card's fastest FP64 rate: a lower bound)
 FP32_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP32 (non-tensor)
-CHOL_RTOL, CHOL_ATOL = 1e-9, 1e-11  # tests/test_pallas.py:38-53, 90-107
-TRI_RTOL, TRI_ATOL = 1e-10, 1e-12   # tests/test_pallas.py:71-87, 110-129
 # both sides of the panel and tile edges (32) and of the one-block limits
 # of the kernels before (169 f64, 240 f32), up to the reference's
 # _PALLAS_MAX_N and past it
@@ -111,8 +111,16 @@ SINGLE_KS = (1, 4, 5)                   # 5: config 1's p, the k of H^-1 A'
 SINGLE_CHOL_AT = {"f64": (1, 5, 50, 500), "f32": (1, 128, 500)}
 SINGLE_PAIR_AT = {"f64": ((1, 1), (5, 1), (50, 1), (50, 5), (500, 1)),
                   "f32": ((1, 1), (128, 1), (500, 1))}
+# (B, n) of the batched kernels' checks: config 3's shapes, then both sides
+# of the micro-tile (4) and panel (32) edges and of the Cholesky's second
+# schedule (above n = 108), up to the largest n the wrappers take
+F64_BATCHED = ((B_MAIN, N_MAIN + 2), (8, 37), (B_MAIN, 3), (64, 1), (64, 2),
+               (64, 4), (64, 5), (64, 31), (64, 32), (64, 33), (64, 65),
+               (64, 108), (64, 109), (64, 169))
 F32_BATCHED = ((B_MAIN, 1), (B_MAIN, 3), (B_MAIN, 37), (B_MAIN, 102),
-               (256, 169), (256, 240))      # (B, n); 240: one block's limit
+               (64, 2), (64, 5), (64, 31), (64, 32), (64, 33), (64, 65),
+               (64, 108), (64, 109), (256, 169), (256, 240))
+KAPPA = {"f64": 1e8, "f32": 1e4}
 F32_SINGLE_NS = (1, 2, 5, 31, 32, 33, 50, 64, 65, 128, 240, 241, 333, 500,
                  768, 1000)
 RELAXED_FEAS, RELAXED_GAP = 1e-4, 5e-5  # feastol_inacc, abstol/reltol_inacc
@@ -226,11 +234,6 @@ def timed(f, library, plain, plain_reps=15, **extra):
                 **extra)
 
 
-def close(a, b, rtol, atol):
-    err = (a - b).abs()
-    return bool((err <= atol + rtol * b.abs()).all()), float(err.max())
-
-
 def chol_flops(n):
     # per column: one sqrt, n - j divisions, rank-1 update of t(t+1)/2 entries
     return n + n * (n + 1) // 2 + sum(t * (t + 1) for t in range(n))
@@ -330,31 +333,61 @@ def phase_build():
           "ptxas": report})
 
 
+def batched_timing(dtype, rng):
+    """chol_batched and tri_pair_batched at config 3's shape (B = 4096,
+    n = 102, k = 1) in one dtype, each beside its library call and plain
+    version, with its bound."""
+    from socp_tpu_torch.ops import chol
+
+    key = "f64" if dtype == torch.float64 else "f32"
+    size = 8 if key == "f64" else 4
+    rate = FP64_FLOPS_PER_S if key == "f64" else FP32_FLOPS_PER_S
+    nv = N_MAIN + 2
+    H = torch.as_tensor(spd_batch(rng, B_MAIN, nv, kappa=KAPPA[key]), dtype=dtype,
+                        device="cuda")
+    L = chol.chol_batched(H)
+    rhs = torch.as_tensor(rng.standard_normal((B_MAIN, nv, 1)), dtype=dtype,
+                          device="cuda")
+    # least bytes each function must move: L (and H) only by their lower
+    # triangle, the Cholesky's whole n x n output, the rhs in and X out
+    tri = size * B_MAIN * nv * (nv + 1) // 2
+    full = size * B_MAIN * nv * nv
+    rb = size * B_MAIN * nv
+    return {
+        "chol_batched": timed(
+            lambda: chol.chol_batched(H), lambda: torch.linalg.cholesky_ex(H),
+            lambda: chol.chol_batched_plain(H),
+            bound=bound(tri + full, B_MAIN * chol_flops(nv), rate)),
+        "tri_pair_batched": timed(
+            lambda: chol.tri_pair_batched(L, rhs),
+            lambda: torch.cholesky_solve(rhs, L),
+            lambda: chol.tri_pair_batched_plain(L, rhs),
+            bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv, rate)),
+    }
+
+
 def phase_kernels():
+    """The f64 batched kernels against their plain versions, bit for bit,
+    at config 3's shapes and across the micro-tile, panel and schedule
+    edges (F64_BATCHED), k = 1 and 3; the non-PD check; timings at config
+    3's shape."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
-    results = {}
-    nv = N_MAIN + 2
-    for B, n in ((B_MAIN, nv), (8, 37), (B_MAIN, 3)):
+    results = {"chol_batched": [], "tri_pair_batched": []}
+    for B, n in F64_BATCHED:
         H = torch.as_tensor(spd_batch(rng, B, n), device=dev)
         L = chol.chol_batched(H)
-        Lp = chol.chol_batched_plain(H)
-        torch.cuda.synchronize()
-        ok, err = close(L, Lp, CHOL_RTOL, CHOL_ATOL)
-        check(ok, f"chol_batched vs plain at B={B} n={n}: max err {err}")
-        results.setdefault("chol_batched", []).append(err)
+        results["chol_batched"].append(bit_equal(
+            L, chol.chol_batched_plain(H), f"chol_batched B={B} n={n}"))
         for k in (1, 3):
             rhs = torch.as_tensor(rng.standard_normal((B, n, k)), device=dev)
-            X = chol.tri_pair_batched(L, rhs)
-            Xp = chol.tri_pair_batched_plain(L, rhs)
-            torch.cuda.synchronize()
-            ok, err = close(X, Xp, TRI_RTOL, TRI_ATOL)
-            check(ok, f"tri_pair_batched vs plain at B={B} n={n} k={k}: "
-                      f"max err {err}")
-            results.setdefault("tri_pair_batched", []).append(err)
+            results["tri_pair_batched"].append(bit_equal(
+                chol.tri_pair_batched(L, rhs), chol.tri_pair_batched_plain(L, rhs),
+                f"tri_pair_batched B={B} n={n} k={k}"))
 
+    nv = N_MAIN + 2
     bad = torch.as_tensor(spd_batch(rng, 64, nv, neg=True), device=dev)
     for f in (chol.chol_batched, chol.chol_batched_plain):
         Lb = f(bad)
@@ -362,27 +395,10 @@ def phase_kernels():
         check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
               f"{f.__name__}: a non-PD input gave a finite factor")
 
-    # timings at the main path's shapes
-    H = torch.as_tensor(spd_batch(rng, B_MAIN, nv), device=dev)
-    L = chol.chol_batched(H)
-    rhs = torch.as_tensor(rng.standard_normal((B_MAIN, nv, 1)), device=dev)
-    # least bytes each function must move: L (and H) only by their lower
-    # triangle, the Cholesky's whole n x n output, the rhs in and X out
-    tri = 8 * B_MAIN * nv * (nv + 1) // 2
-    full = 8 * B_MAIN * nv * nv
-    rb = 8 * B_MAIN * nv
-    timing = {
-        "chol_batched": timed(
-            lambda: chol.chol_batched(H), lambda: torch.linalg.cholesky_ex(H),
-            lambda: chol.chol_batched_plain(H),
-            bound=bound(tri + full, B_MAIN * chol_flops(nv))),
-        "tri_pair_batched": timed(
-            lambda: chol.tri_pair_batched(L, rhs),
-            lambda: torch.cholesky_solve(rhs, L),
-            lambda: chol.tri_pair_batched_plain(L, rhs),
-            bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv)),
-    }
-    emit({"phase": "kernels", "max_abs_err": {k: max(v) for k, v in results.items()},
+    timing = batched_timing(torch.float64, rng)
+    emit({"phase": "kernels", "batched": [list(x) for x in F64_BATCHED],
+          "ks": [1, 3], "bit_equal": True,
+          "max_abs_err": {k: max(v) for k, v in results.items()},
           "timing_shape": {"B": B_MAIN, "n": nv, "k": 1},
           **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
              for k, v in timing.items()}})
@@ -759,7 +775,7 @@ def phase_f32_kernels():
         L = chol.chol_batched(H)
         errs["chol_f32"].append(bit_equal(L, chol.chol_batched_plain(H),
                                           f"chol_batched f32 B={B} n={n}"))
-        for k in (1, 3) if n < 240 else (1,):     # n = 240, k = 3: too big
+        for k in (1, 3):
             rhs = torch.randn((B, n, k), generator=torch.Generator(dev).manual_seed(k),
                               device=dev, dtype=torch.float32)
             errs["tri_pair_f32"].append(bit_equal(
@@ -791,23 +807,9 @@ def phase_f32_kernels():
             check(not bool(torch.isfinite(Lb).all()),
                   f"{f.__name__} f32: a non-PD input at n={n} gave a finite factor")
 
-    nv = N_MAIN + 2
-    H = f32_spd(rng, B_MAIN, nv)
-    L = chol.chol_batched(H)
-    rhs = torch.as_tensor(rng.standard_normal((B_MAIN, nv, 1)), dtype=torch.float32,
-                          device=dev)
-    tri = 4 * B_MAIN * nv * (nv + 1) // 2      # least bytes, as phase_kernels
-    full = 4 * B_MAIN * nv * nv
-    rb = 4 * B_MAIN * nv
-    timing = {"chol_f32": {}, "tri_pair_f32": {}}
-    timing["chol_f32"]["batched"] = timed(
-        lambda: chol.chol_batched(H), lambda: torch.linalg.cholesky_ex(H),
-        lambda: chol.chol_batched_plain(H),
-        bound=bound(tri + full, B_MAIN * chol_flops(nv), FP32_FLOPS_PER_S))
-    timing["tri_pair_f32"]["batched"] = timed(
-        lambda: chol.tri_pair_batched(L, rhs), lambda: torch.cholesky_solve(rhs, L),
-        lambda: chol.tri_pair_batched_plain(L, rhs),
-        bound=bound(tri + 2 * rb, B_MAIN * 2 * nv * nv, FP32_FLOPS_PER_S))
+    batched = batched_timing(torch.float32, rng)
+    timing = {"chol_f32": {"batched": batched["chol_batched"]},
+              "tri_pair_f32": {"batched": batched["tri_pair_batched"]}}
     single = single_timing(torch.float32, rng)
     timing["chol_f32"].update({f"single_{at}": t
                                for at, t in single["chol_single"].items()})

@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time the single-instance kernels of several copies of socp_tpu_torch on
-one card with one timer, so that two versions compare like for like.
+"""Time the Cholesky and pair-solve kernels of several copies of
+socp_tpu_torch on one card with one timer, so that two versions compare
+like for like.
 
     python3 kernel_compare.py ROOT [ROOT ...]
 
 Each ROOT is a directory that holds a `socp_tpu_torch` package: this
 checkout (`.`) or an unpacked `git archive` of another commit.  For each
-ROOT, in the order given, a fresh process builds that package's
-chol_single and tri_pair_single sources, checks both kernels bit for bit
-against their plain versions at n = 33, 65, 128 and 500, and times them
-through the package's own wrappers with `single_timing` of the
-chip_smoke.py beside this script, whatever the ROOT: call_ms (CUDA events
-around one call) and kernel_ms (device time of the kernels the call
-enqueues, torch.profiler), each a median of 15, at the single path's
-shapes in f64 and f32, on inputs made from the same seed.  Give the roots
+ROOT, in the order given, a fresh process builds that package's four
+kernel sources, checks the single kernels bit for bit against their plain
+versions at n = 33, 65, 128 and 500 and the batched ones at B = 64 and
+n = 33, 65, 102, and times them through the package's own wrappers with
+`single_timing` and `batched_timing` of the chip_smoke.py beside this
+script, whatever the ROOT: call_ms (CUDA events around one call) and
+kernel_ms (device time of the kernels the call enqueues, torch.profiler),
+each a median of 15, at the single path's shapes and at config 3's
+(B = 4096, n = 102, k = 1), in f64 and f32, on inputs made from the same
+seed.  Give the roots
 as A B B A to see the drift between runs.  Prints the card's nvidia-smi
 "name, power.limit" line, one JSON line per run (with the registers and
 spills of the kernels it built), then a summary line: per kernel and
@@ -30,8 +33,9 @@ import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.abspath(__file__))
-SOURCES = ("chol_single", "tri_pair_single")
+SOURCES = ("chol_single", "tri_pair_single", "chol_batched", "tri_pair_batched")
 CHECK_NS = (33, 65, 128, 500)
+BATCHED_CHECK_NS = (33, 65, 102)
 
 
 def one(root):
@@ -66,9 +70,23 @@ def one(root):
                         and torch.equal(X, chol.tri_pair_single_plain(L, rhs)),
                         f"{root}: a kernel differs from its plain version "
                         f"at n={n}, {dtype}")
+        for n in BATCHED_CHECK_NS:
+            H = torch.as_tensor(smoke.spd_batch(rng, 64, n, kappa=kappa),
+                                dtype=dtype, device="cuda")
+            rhs = torch.as_tensor(rng.standard_normal((64, n, 1)), dtype=dtype,
+                                  device="cuda")
+            L = chol.chol_batched(H)
+            X = chol.tri_pair_batched(L, rhs)
+            smoke.check(torch.equal(L, chol.chol_batched_plain(H))
+                        and torch.equal(X, chol.tri_pair_batched_plain(L, rhs)),
+                        f"{root}: a batched kernel differs from its plain "
+                        f"version at n={n}, {dtype}")
     for dtype, key in ((torch.float64, "f64"), (torch.float32, "f32")):
         rng = np.random.default_rng(smoke.SEED + 1)
         timing = smoke.single_timing(dtype, rng)
+        at = f"B={smoke.B_MAIN},n={smoke.N_MAIN + 2},k=1"
+        timing.update({name: {at: t} for name, t in
+                       smoke.batched_timing(dtype, rng).items()})
         out[key] = {name: {at: {k: v for k, v in t.items() if k != "bound"}
                            for at, t in by.items()}
                     for name, by in timing.items()}

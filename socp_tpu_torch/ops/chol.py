@@ -71,12 +71,16 @@ COUNTERS = {"chol_batched": "chol_launches",
 # dtype -> suffix of the C entry point
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
 
-# shared memory one thread block can use on Hopper (bytes)
-SMEM_LIMIT = 232_448
+# the largest order of a batched factor or pair solve, by dtype: what the
+# batched kernels took when one block held the matrix in shared memory
+# (csrc/chol_batched.cu's register tiles now hold up to 176 and 252; the
+# pair solve takes any k)
+BATCHED_MAX_N = {torch.float64: 169, torch.float32: 240}
 
 
 def chol_batched_plain(H: torch.Tensor) -> torch.Tensor:
-    """Right-looking column loop, as in csrc/chol_batched.cu."""
+    """Right-looking column loop: the order of every entry's operations in
+    csrc/chol_batched.cu."""
     M = H.clone()
     n = M.shape[-1]
     for j in range(n):
@@ -89,7 +93,8 @@ def chol_batched_plain(H: torch.Tensor) -> torch.Tensor:
 
 
 def tri_pair_batched_plain(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
-    """Forward then backward substitution, as in csrc/tri_pair_batched.cu."""
+    """Forward then backward substitution: the order of every entry's
+    operations in csrc/tri_pair_batched.cu."""
     X = rhs.clone()
     n = L.shape[-1]
     diag = torch.diagonal(L, dim1=1, dim2=2)[..., None]      # (B, n, 1)
@@ -135,15 +140,13 @@ def _check_pair(name: str, L: torch.Tensor, rhs: torch.Tensor):
         raise ValueError(f"{name}: L and rhs on different devices")
 
 
-def _smem_check(name: str, n: int, extra: int, itemsize: int):
-    smem = (n * n + extra) * itemsize
-    if smem > SMEM_LIMIT:
+def _order_check(name: str, n: int, dtype: torch.dtype):
+    if n > BATCHED_MAX_N[dtype]:
         raise ValueError(
-            f"{name}: n={n} needs {smem} B of shared memory, above the "
-            f"{SMEM_LIMIT} B one block has; a batch of factors above n = 169 "
-            "(f64) or 240 (f32) needs a blocked batched design (ROADMAP.md, "
-            "queue 1 item 14); a single instance goes to chol_single / "
-            "tri_pair_single"
+            f"{name}: n={n} is above {BATCHED_MAX_N[dtype]} for {dtype}; a "
+            "batch of factors above n = 169 (f64) or 240 (f32) needs a blocked "
+            "batched design (ROADMAP.md, queue 1 item 14); a single instance "
+            "goes to chol_single / tri_pair_single"
         )
 
 
@@ -181,7 +184,7 @@ def chol_batched(H: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_batched: not square: {tuple(H.shape)}")
     if H.device.type == "cpu":
         return chol_batched_plain(H)
-    _smem_check("chol_batched", n, n, H.element_size())
+    _order_check("chol_batched", n, H.dtype)
     L = torch.empty_like(H)
     if L.numel() == 0:
         return L
@@ -201,7 +204,7 @@ def tri_pair_batched(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     _check_pair("tri_pair_batched", L, rhs)
     if L.device.type == "cpu":
         return tri_pair_batched_plain(L, rhs)
-    _smem_check("tri_pair_batched", n, n * k, L.element_size())
+    _order_check("tri_pair_batched", n, L.dtype)
     X = torch.empty_like(rhs)
     if X.numel() == 0:
         return X

@@ -107,3 +107,99 @@ def test_wrappers_reject_what_the_kernels_do_not_take(bad):
     else:
         with pytest.raises(ValueError):
             chol.tri_pair_batched(H, rhs[:, :3])
+
+
+# ---- the batched kernels' schedules, step for step (csrc/chol_batched.cu
+# and csrc/tri_pair_batched.cu): each must round every entry as the plain
+# loops do, so that the card can hold the kernels to them bit for bit
+
+
+def _microtile_order(H: torch.Tensor) -> torch.Tensor:
+    """chol_batched's steps: column 0 from the pivots read off H; at step j,
+    column j + 1 first -- its pivot is the one published at step j - 1
+    minus its own update with column j, its entries are updated with
+    column j and divided by the pivot's square root -- then the rest of the
+    trailing lower triangle takes column j, and entry (j + 2, j + 2) is
+    published as the next pivot.  The kernel's 4 x 4 register tiles and its
+    two schedules (by n) change only which thread does which entry."""
+    n = H.shape[-1]
+    M = torch.tril(H)                      # the kernel reads only this
+    L = torch.zeros_like(H)
+    pv = torch.diagonal(H, dim1=1, dim2=2).clone()
+    col = M[:, :, 0] / torch.sqrt(pv[:, 0])[:, None]
+    L[:, :, 0] = col
+    for j in range(n - 1):
+        c = col[:, j + 1]
+        d = torch.sqrt(pv[:, j + 1] - c * c)
+        nxt = torch.zeros_like(col)
+        nxt[:, j + 1:] = (M[:, j + 1:, j + 1] - col[:, j + 1:] * c[:, None]) / d[:, None]
+        L[:, j + 1:, j + 1] = nxt[:, j + 1:]
+        M[:, j + 2:, j + 2:] = torch.tril(
+            M[:, j + 2:, j + 2:] - col[:, j + 2:, None] * col[:, None, j + 2:])
+        if j + 2 < n:
+            pv[:, j + 2] = M[:, j + 2, j + 2]
+        col = nxt
+    return L
+
+
+def _batched_pair_order(L: torch.Tensor, rhs: torch.Tensor, nb: int = 32) -> torch.Tensor:
+    """tri_pair_batched's jobs in the kernel's order: forward, for each
+    32-row panel its diagonal block's chain (each row's quotient is its
+    result), then each block below it takes the panel's quotients in step
+    order; backward the same from the bottom panel up."""
+    n = L.shape[-1]
+    X = rhs.clone()
+    diag = torch.diagonal(L, dim1=1, dim2=2)[..., None]       # (B, n, 1)
+    panels = range(0, n, nb)
+    for a in panels:
+        e = min(n, a + nb)
+        qs = []
+        for j in range(a, e):
+            q = X[:, j] / diag[:, j]
+            X[:, j + 1:e] -= L[:, j + 1:e, j, None] * q[:, None]
+            qs.append(q)
+        X[:, a:e] = torch.stack(qs, 1)
+        for r in range(e, n, nb):
+            rows = slice(r, min(n, r + nb))
+            for t, q in enumerate(qs):
+                X[:, rows] -= L[:, rows, a + t, None] * q[:, None]
+    for a in reversed(panels):
+        e = min(n, a + nb)
+        qs = {}
+        for j in range(e - 1, a - 1, -1):
+            qs[j] = X[:, j] / diag[:, j]
+            X[:, a:j] -= L[:, j, a:j, None] * qs[j][:, None]
+        for j in range(a, e):
+            X[:, j] = qs[j]
+        for r in range(a - nb, -1, -nb):
+            rows = slice(r, r + nb)
+            for j in range(e - 1, a - 1, -1):
+                X[:, rows] -= L[:, j, rows, None] * qs[j][:, None]
+    return X
+
+
+# n across the micro-tile (4) and panel (32) edges, the Cholesky's second
+# schedule (above n = 108) and config 3's n = 102, up to the largest order
+# the wrappers take in f64
+BATCHED_SCHEDULE_CASES = (
+    [("chol", d, n, 0) for d in ("f64", "f32")
+     for n in (1, 2, 3, 4, 5, 31, 32, 33, 65, 102, 108, 109, 169)]
+    + [("pair", d, n, k) for d in ("f64", "f32")
+       for n in (1, 2, 31, 32, 33, 65, 102, 169) for k in (1, 3)])
+
+
+@pytest.mark.parametrize("schedule,dtype,n,k", BATCHED_SCHEDULE_CASES)
+def test_batched_kernel_schedule_is_the_plain_order(schedule, dtype, n, k):
+    """B = 3 instances through each batched kernel's schedule: bit-equal to
+    the plain loops (torch.equal) in f64 and f32."""
+    rng = np.random.default_rng(1000 + n + k)
+    H = torch.as_tensor(_spd(rng, n, kappa=1e8 if dtype == "f64" else 1e4)[:3],
+                        dtype=torch.float64 if dtype == "f64" else torch.float32)
+    if schedule == "pair":
+        L = chol.chol_batched_plain(H)
+        rhs = torch.as_tensor(rng.standard_normal((3, n, k)), dtype=H.dtype)
+        got, want = _batched_pair_order(L, rhs), chol.tri_pair_batched_plain(L, rhs)
+    else:
+        got, want = _microtile_order(H), chol.chol_batched_plain(H)
+    assert bool(torch.isfinite(want).all())
+    assert torch.equal(got, want)

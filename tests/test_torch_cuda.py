@@ -6,10 +6,9 @@ import.  On the card:
 
     python -m pytest -o addopts='' -m cuda tests/test_torch_cuda.py -q
 
-Kernels are held to their plain PyTorch versions: the batched f64
-instances at the reference's kernel tolerances (tests/test_pallas.py:
-90-129), the single-instance kernels, the f32 instances and the probes bit
-for bit; the card path of the solver is held
+Kernels are held to their plain PyTorch versions bit for bit (the batched
+and single-instance kernels in f64 and f32, and the probes); the card path
+of the solver is held
 to the JAX reference (run on the CPU) as tests/test_torch_solve.py and
 tests/test_torch_f32factor.py hold the CPU path.
 """
@@ -44,33 +43,90 @@ def _spd(seed, B, n, kappa=1e8, neg=False):
     return 0.5 * (H + np.swapaxes(H, 1, 2))
 
 
-def _close(a, b, rtol, atol):
-    a, b = a.cpu().numpy(), b.cpu().numpy()
-    np.testing.assert_allclose(a, b, rtol=rtol, atol=atol)
+# (B, n): config 3's shapes, both sides of the micro-tile (4) and panel (32)
+# edges, the Cholesky's second schedule (above n = 108) and the largest n
+BATCHED_F64 = [(256, 102), (8, 37), (256, 3), (4, 1), (64, 2), (64, 5),
+               (64, 31), (64, 32), (64, 33), (64, 65), (64, 108), (64, 109),
+               (16, 169), (4096, 102)]
 
 
-@pytest.mark.parametrize("B,n", [(256, 102), (8, 37), (256, 3), (4, 1)])
+@pytest.mark.parametrize("B,n", BATCHED_F64)
 def test_chol_kernel_matches_plain(card, B, n):
     H = torch.as_tensor(_spd(n, B, n), device=card)
     before = chol.chol_launches
     L = chol.chol_batched(H)
     assert chol.chol_launches == before + 1
-    _close(L, chol.chol_batched_plain(H), 1e-9, 1e-11)
+    assert torch.equal(L, chol.chol_batched_plain(H))
 
 
-@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 37, 3), (256, 3, 3)])
+@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 37, 3), (256, 3, 3)]
+                         + [(B, n, k) for B, n in BATCHED_F64[3:] for k in (1, 3)])
 def test_tri_pair_kernel_matches_plain(card, B, n, k):
+    """k = 3 at n = 169 is new: one block no longer holds the rhs beside L."""
     L = chol.chol_batched(torch.as_tensor(_spd(n + k, B, n), device=card))
     rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((B, n, k)),
                           device=card)
     before = chol.tri_pair_launches
     X = chol.tri_pair_batched(L, rhs)
     assert chol.tri_pair_launches == before + 1
-    _close(X, chol.tri_pair_batched_plain(L, rhs), 1e-10, 1e-12)
+    assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
 
 
-def test_non_pd_gives_non_finite_factor(card):
-    L = chol.chol_batched(torch.as_tensor(_spd(7, 16, 102, neg=True), device=card))
+def _batched_inputs(dtype, B, n, card, seed=None):
+    seed = n if seed is None else seed
+    H = _spd(seed, B, n) if dtype == torch.float64 else _spd32(seed, B, n)
+    rhs = np.random.default_rng(seed + 1).standard_normal((B, n, 1))
+    return (torch.as_tensor(H, dtype=dtype, device=card),
+            torch.as_tensor(rhs, dtype=dtype, device=card))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_kernels_back_to_back_calls_give_the_same_bits(card, dtype):
+    """Calls queued on one stream with no sync between them."""
+    H, rhs = _batched_inputs(dtype, 256, 102, card)
+    Ls = [chol.chol_batched(H) for _ in range(3)]
+    Xs = [chol.tri_pair_batched(L, rhs) for L in Ls]
+    torch.cuda.synchronize()
+    for L, X in zip(Ls[1:], Xs[1:]):
+        assert torch.equal(L, Ls[0]) and torch.equal(X, Xs[0])
+    assert torch.equal(Ls[0], chol.chol_batched_plain(H))
+    assert torch.equal(Xs[0], chol.tri_pair_batched_plain(Ls[0], rhs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_batched_kernels_replay_in_a_cuda_graph(card, dtype):
+    """chol_batched then tri_pair_batched at B = 256, n = 102 captured by
+    torch.cuda.graph, replayed on the captured inputs and on new ones
+    written into them: bit-equal to the plain versions."""
+    H, rhs = _batched_inputs(dtype, 256, 102, card)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):                  # warm-up, as torch asks
+        for _ in range(2):
+            chol.tri_pair_batched(chol.chol_batched(H), rhs)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        L = chol.chol_batched(H)
+        X = chol.tri_pair_batched(L, rhs)
+    for seed in (None, 11):
+        if seed is not None:
+            H2, rhs2 = _batched_inputs(dtype, 256, 102, card, seed=seed)
+            H.copy_(H2)
+            rhs.copy_(rhs2)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(L, chol.chol_batched_plain(H))
+        assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_non_pd_gives_non_finite_factor(card, dtype):
+    """Every instance of a batch whose smallest eigenvalue is negative gets
+    a non-finite factor, and the call returns."""
+    H = _spd(7, 16, 102, neg=True) if dtype == torch.float64 else _spd32(7, 16, 102, neg=True)
+    L = chol.chol_batched(torch.as_tensor(H, dtype=dtype, device=card))
+    torch.cuda.synchronize()
     assert bool((~torch.isfinite(L)).flatten(1).any(1).all())
 
 
@@ -275,9 +331,15 @@ def _spd32(seed, B, n, neg=False):
     return np.asarray(_spd(seed, B, n, kappa=1e4, neg=neg), np.float32)
 
 
-@pytest.mark.parametrize("B,n", [(256, 102), (8, 240), (4, 1)])
+# (B, n) in f32: as BATCHED_F64, up to n = 240, the largest the wrapper takes
+BATCHED_F32 = [(256, 102), (8, 240), (4, 1), (64, 2), (64, 5), (64, 31),
+               (64, 32), (64, 33), (64, 65), (64, 108), (64, 109), (16, 169),
+               (4096, 102)]
+
+
+@pytest.mark.parametrize("B,n", BATCHED_F32)
 def test_f32_chol_batched_bit_equal_to_plain(card, B, n):
-    """n = 240 is the largest f32 matrix one block's shared memory holds."""
+    """n = 240 is the largest order the wrapper takes in f32."""
     H = torch.as_tensor(_spd32(n, B, n), device=card)
     before = (chol.chol_launches, chol.chol_launches_f32)
     L = chol.chol_batched(H)
@@ -286,8 +348,11 @@ def test_f32_chol_batched_bit_equal_to_plain(card, B, n):
     assert torch.equal(L, chol.chol_batched_plain(H))
 
 
-@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 240, 1), (8, 37, 3)])
+@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 240, 1), (8, 37, 3)]
+                         + [(B, n, k) for B, n in BATCHED_F32[2:] for k in (1, 3)]
+                         + [(8, 240, 3)])
 def test_f32_tri_pair_batched_bit_equal_to_plain(card, B, n, k):
+    """k = 3 at n = 240 is new: one block no longer holds the rhs beside L."""
     L = chol.chol_batched(torch.as_tensor(_spd32(n + k, B, n), device=card))
     rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((B, n, k)),
                           dtype=torch.float32, device=card)
