@@ -36,6 +36,12 @@ Phases, each printing one JSON line to stdout:
   6. profile  device time of one more main-path solve by kernel and
               category, from torch.profiler, and the device's idle share:
               1 - busy / wall of the main phase's unprofiled solve.
+  5n. main_native  config 3 with SolverConfig(native_dd=True), the
+              reference's accelerator route (bench.py:254-266): the
+              structured KKT assembly, here ConstGram (NB = 2), which never
+              forms W^-1 G; the same checks as phase 5 (the CPU re-solve
+              through the same route), the lanes at the lockstep maximum;
+              then its profile as phase 6 ("config3_native").
   7. single   BASELINE configs 1 (random_socp, n = 50) and 2 (portfolio,
               n = 500) through socp_tpu_torch.solve on "cuda": OPTIMAL at the
               1e-8 tolerances, the models' own checks, launches only of the
@@ -43,6 +49,13 @@ Phases, each printing one JSON line to stdout:
               (plain path) re-solve agreeing; config 2 again with one Gondzio
               corrector; then profiles of configs 1 and 2 as in phase 6,
               with the port's kernels' device ms and launches in a solve.
+  7n. single_native  configs 1 and 2 with native_dd=True (ConstGram: NB = 3
+              with orthant rows, p = 5; NB = 1, l = 500, p = 1), as phase 7.
+  7b. large_batch  solve_batch of two config-2 instances (seeds 0 and 1) on
+              the card: n = 500 is above the batched kernels' largest order,
+              so the routers run H's factor and solves through the single
+              kernels an instance at a time; both OPTIMAL, pcost within 1e-8
+              of each solved alone, the launch ratios of that route.
   8. f32_kernels  the f32 instances of the four kernels (the factor of the
               mixed-precision mode, factor_dtype="float32") against their
               plain versions, bit for bit, on f32 SPD batches with kappa =
@@ -70,7 +83,8 @@ Phases, each printing one JSON line to stdout:
               its script's own check, and timed as phase 3; P1, the f32
               Cholesky at n = 128, runs the f32 single kernel.
 Then a {"kernels": [...]} line, one row per TPU kernel (11): the f64
-batched kernels at config 3's shapes, with their launches in phase 5; the
+batched kernels at config 3's shapes, with their launches in phase 5 (each
+f64 row also has "launches_by_path": phases 5, 5n, 7, 7n and 7b); the
 f64 single-instance ones at n = 500, k = 1 with the path's other shapes
 beside, with their launches in phase 7's default run of config 2 and, per
 config, of configs 1 and 2; the f32 Cholesky and pair solve at B = 4096,
@@ -482,13 +496,18 @@ def phase_single_kernels():
     return results, timing
 
 
-def phase_main():
-    from socp_tpu_torch import Status, prepare_batch, solve_batch_raw
+def phase_main(native_dd=False):
+    """Config 3 through prepare_batch on the card: the default KKT route,
+    or with native_dd the reference's accelerator route (the structured
+    assembly, here ConstGram: NB = 2), phase "main_native"."""
+    from socp_tpu_torch import SolverConfig, Status, prepare_batch, solve_batch_raw
     from socp_tpu_torch.models.robust_ls import robust_ls_batch
 
+    label = "main_native" if native_dd else "main"
+    cfg = SolverConfig(native_dd=native_dd)
     t0 = time.perf_counter()
     c, G, h, dims = robust_ls_batch(SEED, batch=B_MAIN, n=N_MAIN)
-    fn, args, layout = prepare_batch(c, G, h, dims, device="cuda")
+    fn, args, layout = prepare_batch(c, G, h, dims, config=cfg, device="cuda")
     torch.cuda.synchronize()
     setup_s = time.perf_counter() - t0
     check(c.shape[1] == N_MAIN + 2 and layout.m_pad == 312,
@@ -507,18 +526,18 @@ def phase_main():
     launches = read_counts()
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     check(launches["chol_single"] == launches["tri_pair_single"] == 0,
-          f"the batched path launched single-instance kernels: {launches}")
-    none_of(launches, F32_KERNELS, "config 3 (f64)")
+          f"{label}: the batched path launched single-instance kernels: {launches}")
+    none_of(launches, F32_KERNELS, f"{label}: config 3 (f64)")
 
     x = out[0].cpu().numpy()
     k = out[5].cpu().numpy()
     stats = out[6].cpu().numpy()
     n_opt = int(np.sum(status == int(Status.OPTIMAL)))
-    check(n_opt == B_MAIN, f"{n_opt}/{B_MAIN} OPTIMAL")
+    check(n_opt == B_MAIN, f"{label}: {n_opt}/{B_MAIN} OPTIMAL")
     pres, dres, gap, relgap = stats[:, 4], stats[:, 5], stats[:, 2], stats[:, 3]
     strict = (pres <= 1e-8) & (dres <= 1e-8) & ((gap <= 1e-8) | (relgap <= 1e-8))
     check(bool(strict.all()),
-          f"{int((~strict).sum())} instances miss the strict 1e-8 tolerances")
+          f"{label}: {int((~strict).sum())} instances miss the strict 1e-8 tolerances")
 
     # closed form: ||D x - d|| + rho ||x|| at the returned x (rho = 0.1)
     kk = dims.qs[0] - 1
@@ -528,22 +547,28 @@ def phase_main():
     obj = (np.linalg.norm(np.einsum("bkn,bn->bk", D, xs) - d, axis=1)
            + 0.1 * np.linalg.norm(xs, axis=1))
     rel = np.abs(stats[:, 0] - obj) / np.maximum(1.0, np.abs(obj))
-    check(bool((rel <= 1e-7).all()), f"pcost vs closed form: max rel {rel.max()}")
+    check(bool((rel <= 1e-7).all()),
+          f"{label}: pcost vs closed form: max rel {rel.max()}")
 
     # launches: init 1 + 4, each lockstep iteration 1 + 3 (p = 0)
     n_iter = launches["chol_batched"] - 1
     check(n_iter >= 1 and launches["tri_pair_batched"] == 4 + 3 * n_iter,
-          f"launch ratios {launches}")
+          f"{label}: launch ratios {launches}")
     check(int(k.max()) <= n_iter <= int(k.max()) + 1,
-          f"{n_iter} lockstep iterations vs max k {int(k.max())}")
+          f"{label}: {n_iter} lockstep iterations vs max k {int(k.max())}")
 
-    # 8 instances on the CPU (plain kernels) against the card
-    cpu = solve_batch_raw(c[:8], G[:8], h[:8], dims, device="cpu")
-    check(bool((cpu[4] == status[:8]).all()), f"CPU status {cpu[4]} vs {status[:8]}")
+    # 8 instances on the CPU (plain kernels, the same route) against the card
+    cpu = solve_batch_raw(c[:8], G[:8], h[:8], dims, config=cfg, device="cpu")
+    check(bool((cpu[4] == status[:8]).all()),
+          f"{label}: CPU status {cpu[4]} vs {status[:8]}")
     prel = np.abs(cpu[6][:, 0] - stats[:8, 0]) / np.maximum(1.0, np.abs(stats[:8, 0]))
-    check(bool((prel <= 1e-8).all()), f"CPU pcost vs card: max rel {prel.max()}")
+    check(bool((prel <= 1e-8).all()),
+          f"{label}: CPU pcost vs card: max rel {prel.max()}")
+    # lanes at the lockstep maximum, the stragglers (by instance index)
+    stragglers = np.flatnonzero(k == k.max())
 
-    emit({"phase": "main", "config": f"robust_ls_batch({SEED}, batch={B_MAIN}, n={N_MAIN})",
+    emit({"phase": label, "config": f"robust_ls_batch({SEED}, batch={B_MAIN}, n={N_MAIN})",
+          "native_dd": native_dd,
           "B": B_MAIN, "nv": int(c.shape[1]), "m_pad": layout.m_pad,
           "optimal": n_opt, "max_gap": float(gap.max()),
           "max_pres": float(pres.max()), "max_dres": float(dres.max()),
@@ -553,6 +578,10 @@ def phase_main():
           "lockstep_iterations": n_iter,
           "lockstep_iteration_ms": solve_s / n_iter * 1e3,
           "iters_max": int(k.max()), "iters_mean": float(k.mean()),
+          "iters_histogram": {int(v): int(n) for v, n in
+                              zip(*np.unique(k, return_counts=True))},
+          "stragglers": {"count": int(stragglers.size),
+                         "first": stragglers[:16].tolist()},
           "launches": launches, "peak_device_gb": peak_gb,
           "cpu_recheck": {"instances": 8, "max_pcost_rel": float(prel.max()),
                           "iters_equal": bool((cpu[5] == k[:8]).all())}})
@@ -615,8 +644,11 @@ def phase_profile(run, solve_s, config):
                   for ms, count, name in kernels[:12]]})
 
 
-def phase_single():
-    """BASELINE configs 1 and 2 through socp_tpu_torch.solve on the card."""
+def phase_single(native_dd=False):
+    """BASELINE configs 1 and 2 through socp_tpu_torch.solve on the card:
+    the default KKT route (with config 2 once more with a Gondzio
+    corrector), or with native_dd the structured one (ConstGram: NB = 3
+    with orthant rows, and NB = 1), phase "single_native"."""
     from socp_tpu_torch import SolverConfig, Status, solve
     from socp_tpu_torch.models.portfolio import portfolio, portfolio_risk
     from socp_tpu_torch.models.random_socp import random_socp
@@ -630,10 +662,13 @@ def phase_single():
         ("config2", "portfolio(0, n=500, k=20)", prob2, 0),
         ("config2_gondzio1", "portfolio(0, n=500, k=20)", prob2, 1),
     )
+    if native_dd:
+        runs = tuple((f"{label}_native", source, prob, g)
+                     for label, source, prob, g in runs if g == 0)
     by_config = {}
     out = {}
     for label, source, prob, g in runs:
-        cfg = SolverConfig(gondzio_correctors=g)
+        cfg = SolverConfig(gondzio_correctors=g, native_dd=native_dd)
         solve(prob, config=cfg, device="cuda")           # warm-up
         torch.cuda.synchronize()
         reset_counts()
@@ -664,7 +699,7 @@ def phase_single():
               f"{label}: launch ratios {launches}")
         check(sol.iterations <= n_iter <= sol.iterations + 1,
               f"{label}: {n_iter} loop iterations vs {sol.iterations}")
-        if label == "config1":
+        if label.startswith("config1"):
             model = {"pcost_rel_known": abs(sol.pcost - known.pcost)
                      / max(1.0, abs(known.pcost))}
             check(model["pcost_rel_known"] <= 1e-6,
@@ -678,7 +713,8 @@ def phase_single():
             check(model["risk"] <= info["sigma_max"] * (1 + 1e-6)
                   and model["budget_err"] < 1e-6 and model["w_min"] >= -1e-7,
                   f"{label}: portfolio checks {model}")
-        row = {"phase": "single", "config": label, "source": source,
+        row = {"phase": "single_native" if native_dd else "single",
+               "config": label, "source": source, "native_dd": native_dd,
                "gondzio_correctors": g, "status": sol.status_name,
                "iterations": sol.iterations, "loop_iterations": n_iter,
                "solve_ms": solve_s * 1e3,
@@ -697,6 +733,8 @@ def phase_single():
                                   "pcost_rel": rel}
         emit(row)
         out[label] = (prob, cfg, solve_s)
+    if native_dd:
+        return by_config, {}
     g0, g1 = out["config2"][2], out["config2_gondzio1"][2]
     emit({"phase": "single_gondzio", "config": "config2",
           "solve_ms": {"gondzio0": g0 * 1e3, "gondzio1": g1 * 1e3}})
@@ -706,6 +744,58 @@ def phase_single():
         runs[label] = ((lambda p=prob, c=cfg: solve(p, config=c, device="cuda")),
                        solve_s)
     return by_config, runs
+
+
+def phase_large_batch():
+    """solve_batch of two config-2 instances (portfolio(s, n=500, k=20),
+    s = 0, 1) on the card: n = 500 is above what the batched kernels take
+    (169 in f64), so the routers factor H and solve with it an instance at
+    a time through the single kernels.  The 1 x 1 Schur complement (p = 1)
+    stays on the batched kernels.  Held: both OPTIMAL at 1e-8, pcost within
+    1e-8 of each instance solved alone, and the launch ratios (a factor: 2
+    chol_single for H, 1 chol_batched for S, 2 tri_pair_single for
+    H^-1 A'; a back-solve: 4 tri_pair_single, 1 tri_pair_batched)."""
+    from socp_tpu_torch import Status, solve, solve_batch
+    from socp_tpu_torch.models.portfolio import portfolio
+
+    probs = [portfolio(s, n=500, k=20)[0] for s in (SEED, SEED + 1)]
+    stack = {f: np.stack([getattr(p, f) for p in probs])
+             for f in ("c", "G", "h", "A", "b")}
+    dims = probs[0].dims
+
+    def run():
+        return solve_batch(stack["c"], stack["G"], stack["h"], dims,
+                           A=stack["A"], b=stack["b"], device="cuda")
+
+    run()                                            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sols = run()
+    solve_s = time.perf_counter() - t0
+    launches = read_counts()
+    factors, backsolves = launches["chol_batched"], launches["tri_pair_batched"]
+    check(factors >= 2 and launches["chol_single"] == 2 * factors
+          and launches["tri_pair_single"] == 2 * (factors + 2 * backsolves),
+          f"large_batch: launch ratios {launches}")
+    none_of(launches, F32_KERNELS, "large_batch")
+    singles = [solve(p, device="cuda") for p in probs]
+    rels = []
+    for i, (sol, one) in enumerate(zip(sols, singles)):
+        check(sol.status == one.status == Status.OPTIMAL and not sol.inaccurate,
+              f"large_batch lane {i}: {sol} vs alone {one}")
+        check(sol.pres <= 1e-8 and sol.dres <= 1e-8
+              and (sol.gap <= 1e-8 or sol.relgap <= 1e-8),
+              f"large_batch lane {i} misses the strict 1e-8 tolerances: {sol}")
+        rels.append(abs(sol.pcost - one.pcost) / max(1.0, abs(one.pcost)))
+        check(rels[-1] <= 1e-8, f"large_batch lane {i}: pcost {sol.pcost} vs "
+                                f"alone {one.pcost}")
+    emit({"phase": "large_batch", "config": "solve_batch of portfolio(s, n=500, "
+          "k=20), s = 0, 1", "B": 2, "n": 500, "solve_ms": solve_s * 1e3,
+          "iterations": [s.iterations for s in sols],
+          "iterations_alone": [s.iterations for s in singles],
+          "pcost_rel_alone": rels, "launches": launches})
+    return launches
 
 
 def f32_spd(rng, B, n, neg=False):
@@ -1072,9 +1162,13 @@ def main():
     s_errs, s_timing = phase_single_kernels()
     launches, fn, args, solve_s = phase_main()
     phase_profile(lambda: fn(*args)[4].cpu(), solve_s, "config3")
+    n_launches, n_fn, n_args, n_solve_s = phase_main(native_dd=True)
+    phase_profile(lambda: n_fn(*n_args)[4].cpu(), n_solve_s, "config3_native")
     s_launches, single_runs = phase_single()
     for label, (run, run_s) in single_runs.items():
         phase_profile(run, run_s, label)
+    sn_launches, _ = phase_single(native_dd=True)
+    lb_launches = phase_large_batch()
     f_errs, f_timing = phase_f32_kernels()
     f_launches, f_fn, f_args, f_solve_s = phase_f32factor()
     phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
@@ -1106,8 +1200,15 @@ def main():
 
     rows = []
     for name, (source, replaces) in meta.items():
+        # launches on every path this script drives with the f64 kernels,
+        # each read with the counts set to 0 just before it
+        by_path = {"main": launches[name], "main_native": n_launches[name],
+                   **{c: v[name] for c, v in s_launches.items()},
+                   **{c: v[name] for c, v in sn_launches.items()},
+                   "large_batch": lb_launches[name]}
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
+               "launches_by_path": by_path,
                "max_abs_err": max(errs[name])}
         if name in s_timing:
             # at config 2's shape (n = 500, k = 1) with config 2's launches;

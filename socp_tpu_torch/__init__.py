@@ -4,13 +4,15 @@ It imports torch and numpy, never jax and nothing of `socp_tpu`.  It runs
 the single-instance solve (`solve`) and the batched lockstep solve
 (`prepare_batch`, `solve_batch_raw`, `solve_batch`) in f64 through
 hand-written CUDA kernels for the Cholesky factor and the triangular-pair
-solve, single-instance and batched (`socp_tpu_torch/csrc/`).  Entry points
-run on the card unless the caller passes `device="cpu"`.
+solve, single-instance and batched (`socp_tpu_torch/csrc/`).
+`SolverConfig(native_dd=True)` takes the reference's structured KKT
+assembly (kkt/structured.py).  Entry points run on the card unless the
+caller passes `device="cpu"`.
 """
 
 from socp_tpu_torch.api import (prepare_batch, solve, solve_batch,
                                 solve_batch_raw)
-from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
+from socp_tpu_torch.config import DEFAULT_CONFIG, KKTStrategy, SolverConfig
 from socp_tpu_torch.problem import ConeDims, SocpProblem
 from socp_tpu_torch.solution import Solution, Status
 
@@ -20,6 +22,7 @@ __all__ = [
     "solve_batch",
     "solve_batch_raw",
     "SolverConfig",
+    "KKTStrategy",
     "DEFAULT_CONFIG",
     "ConeDims",
     "SocpProblem",

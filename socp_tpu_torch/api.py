@@ -10,9 +10,18 @@ driver on the device, unpadding — the counterpart of `socp_tpu/api.py`.
 `solve` runs the driver on a batch of one, so its KKT factor and
 back-solves go through the single-instance kernels (`ops.chol.cholesky` /
 `tri_pair_solve` route a batch of one there); the batched entry points run
-the batched kernels.
+the batched kernels (above their largest order, the single ones an
+instance at a time: ops/chol.py).
 
-Precision: by default everything is f64 (`torch.float64`), iterates,
+KKT route: `SolverConfig(native_dd=True)` takes the reference's
+accelerator route, the structured assembly of kkt/structured.py
+(ConstGram for 1-4 SOC blocks, the rho/V form up to 32, the scaled-matrix
+form above), in f64 whatever `factor_dtype` says; the default takes the
+scaled-matrix assembly of kkt/dense.py.  `native_dd` passes through
+`prepare_batch` and `solve` unchanged.
+
+Precision: `dtype` takes None or any spelling of f64 (`resolve_dtype`).
+By default everything is f64 (`torch.float64`), iterates,
 products, factors and solves alike, and TF32 plays no part.  With
 `SolverConfig(factor_dtype="float32")` the iterates and the refinement
 residuals stay f64 while Ghat, H = Ghat'Ghat, the Cholesky factors and the
@@ -54,13 +63,35 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+def resolve_dtype(dtype) -> torch.dtype:
+    """The carry dtype: None or any spelling of f64 (torch.float64,
+    np.float64, np.dtype("float64"), "float64", JAX's float64) is
+    torch.float64; anything else raises (f32 carries are not ported)."""
+    if dtype is None or dtype is torch.float64:
+        return torch.float64
+    names = {str(dtype), str(getattr(dtype, "name", ""))}
+    if not isinstance(dtype, torch.dtype):
+        try:
+            names.add(np.dtype(dtype).name)
+        except TypeError:
+            pass
+    if "float64" in names:
+        return torch.float64
+    raise ValueError(f"the port runs in float64 only, got {dtype!r}")
+
+
 def _resolve_config(config: SolverConfig) -> SolverConfig:
     """Resolve the auto fields as the reference does off the TPU, for a
     single and a batched solve alike (socp_tpu/api.py `_resolve_pallas`):
     no Gondzio corrector, so CPU runs stay iteration-comparable with the
-    reference.  `use_pallas`, `invert_factor`, `native_dd` and
-    `factor_dtype="dd32"` all select the f64 kernel path (config.py);
-    `factor_dtype="float32"` selects the f32 factor and back-solves."""
+    reference.  `native_dd=True` takes the structured KKT assembly
+    (kkt/structured.py) in f64 and, as in the reference, ignores
+    `factor_dtype` (resolved to None here, so the driver sees one answer).
+    `use_pallas`, `invert_factor` and `factor_dtype="dd32"` select the f64
+    kernel path (config.py); `factor_dtype="float32"` selects the f32
+    factor and back-solves."""
+    if config.native_dd and config.factor_dtype is not None:
+        config = dataclasses.replace(config, factor_dtype=None)
     if config.factor_dtype not in driver.FACTOR_DTYPES:
         raise NotImplementedError(
             f"factor_dtype={config.factor_dtype!r}: the port factors in "
@@ -108,8 +139,7 @@ def solve(
     cone order, e.g. a previous Solution's fields after a small problem
     change; s and z are recentered by config.warm_push."""
     dev = resolve_device(device)
-    if dtype not in (None, torch.float64):
-        raise ValueError(f"the port runs in torch.float64 only, got {dtype}")
+    resolve_dtype(dtype)
     if verbose is not None and verbose != config.verbose:
         config = dataclasses.replace(config, verbose=verbose)
     config = _resolve_config(config)
@@ -145,8 +175,7 @@ def prepare_batch(
     per-instance PADDED warm starts (e.g. the raw outputs of a previous
     `fn(*args)`, or `carry.from_reference_warm`)."""
     dev = resolve_device(device)
-    if dtype not in (None, torch.float64):
-        raise ValueError(f"the port runs in torch.float64 only, got {dtype}")
+    resolve_dtype(dtype)
     B, n = np.shape(c)
     config = _resolve_config(config)
     layout = make_layout(dims, config.bucket_multiple)

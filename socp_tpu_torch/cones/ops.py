@@ -227,6 +227,85 @@ def apply_Winv(layout: ConeLayout, sc: Scaling, u: torch.Tensor) -> torch.Tensor
     return _flat(pieces)
 
 
+def _wbar(v: torch.Tensor) -> torch.Tensor:
+    """wbar = v o v = 2 v0 v - e (unit Jordan det): W = eta P(v) and
+    W^2 = eta^2 P(wbar).  The reference keeps wbar beside v in its dd
+    scaling (cones/dd_ops.py); here it is derived from v where needed."""
+    wb = 2.0 * v[..., :1] * v
+    wb[..., 0] -= 1.0
+    return wb
+
+
+def _apply2(layout: ConeLayout, sc: Scaling, u: torch.Tensor,
+            inverse: bool) -> torch.Tensor:
+    """W^2 u (or W^-2 u) in one pass: W^2 = eta^2 P(wbar) and W^-2 =
+    eta^-2 P(J wbar), both P(g) u = 2 g (g'u) - J u."""
+    w2 = sc.w_orth * sc.w_orth
+    uo = _orth(layout, u)
+    pieces = [uo / w2 if inverse else uo * w2]
+    for ub, eta, v in zip(_views(layout, u), sc.etas, sc.vs):
+        wb = _wbar(v)
+        g = _J(wb) if inverse else wb
+        core = 2.0 * g * torch.sum(g * ub, dim=-1, keepdim=True) - _J(ub)
+        eta2 = (eta * eta)[..., None]
+        pieces.append(core / eta2 if inverse else core * eta2)
+    return _flat(pieces)
+
+
+def apply_W2(layout: ConeLayout, sc: Scaling, u: torch.Tensor) -> torch.Tensor:
+    """W'W u = W^2 u (W symmetric) in one pass."""
+    return _apply2(layout, sc, u, inverse=False)
+
+
+def apply_Winv2(layout: ConeLayout, sc: Scaling, u: torch.Tensor) -> torch.Tensor:
+    """W^-2 u in one pass."""
+    return _apply2(layout, sc, u, inverse=True)
+
+
+def n_soc_blocks(layout: ConeLayout) -> int:
+    """NB, the total SOC block count."""
+    return sum(b.n_blocks for b in layout.buckets)
+
+
+def winv2_rho(layout: ConeLayout, sc: Scaling) -> torch.Tensor:
+    """The diagonal part of W^-2 as (B, m_pad) row weights: w^-2 on the
+    orthant rows; per SOC block -eta^-2 on the head row and +eta^-2 on the
+    tail rows (the -eta^-2 J term), so that
+
+        G' W^-2 G = G' diag(rho) G + (G'V) diag(w2) (G'V)'
+
+    with (V, w2) = winv2_columns."""
+    pieces = [1.0 / (sc.w_orth * sc.w_orth)]
+    for b, eta in zip(layout.buckets, sc.etas):
+        e2 = 1.0 / (eta * eta)                              # (B, nb)
+        sign = torch.ones(b.q_pad, dtype=e2.dtype, device=e2.device)
+        sign[0] = -1.0
+        pieces.append(e2[..., None] * sign)
+    return _flat(pieces)
+
+
+def winv2_columns(layout: ConeLayout, sc: Scaling):
+    """Rank-correction generators of the structured KKT assembly: V
+    (B, m_pad, NB), whose column b holds J wbar_b on block b's padded rows
+    and zeros elsewhere, and w2 (B, NB) = 2 eta_b^-2 (None when NB = 0)."""
+    nb_total = n_soc_blocks(layout)
+    B = sc.w_orth.shape[0]
+    dtype, device = sc.w_orth.dtype, sc.w_orth.device
+    V = torch.zeros((B, layout.m_pad, nb_total), dtype=dtype, device=device)
+    w2s = []
+    col0 = 0
+    for b, eta, v in zip(layout.buckets, sc.etas, sc.vs):
+        nb = b.n_blocks
+        eye = torch.eye(nb, dtype=dtype, device=device)
+        blk = _J(_wbar(v))[..., None] * eye[:, None, :]    # (B, nb, q_pad, nb)
+        V[:, b.offset:b.offset + b.size, col0:col0 + nb] = blk.reshape(
+            B, b.size, nb)
+        w2s.append(2.0 / (eta * eta))
+        col0 += nb
+    w2 = torch.cat(w2s, dim=1) if w2s else None
+    return V, w2
+
+
 def scale_rows_Winv(layout: ConeLayout, sc: Scaling, G: torch.Tensor) -> torch.Tensor:
     """W^-1 G for a (B, m_pad, n) batch: diag scaling on orthant rows, a
     batched rank-1 (arrow) update per SOC bucket, never materializing W."""

@@ -8,9 +8,13 @@ triangular-pair kernels or their f32 instances (single-instance for
 `solve`, batched for the batched entry points):
 
   * `factor_dtype=None` or `"float64"`              -> the f64 path;
-  * `native_dd` (dd32 everywhere on the TPU)        -> the f64 path;
+  * `native_dd` (dd32 everywhere on the TPU)        -> the f64 path with
+    the reference's structured KKT assembly (kkt/structured.py: ConstGram,
+    W^-2 helpers, G dx reuse), whatever `factor_dtype` says: the reference
+    ignores `factor_dtype` under `native_dd`, and api.py resolves it to
+    None;
   * `factor_dtype="dd32"` (dd32 factor)             -> the f64 path;
-  * `factor_dtype="float32"`                         -> the f32 factor and
+  * `factor_dtype="float32"` (without `native_dd`)   -> the f32 factor and
     back-solves under f64 refinement (kkt/dense.py), the reference's
     mixed-precision mode; it ends "optimal, inaccurate" near a 1e-6 gap,
     as the reference does;
@@ -26,6 +30,17 @@ block-Schur path, which this package does not have yet.
 from __future__ import annotations
 
 import dataclasses
+import enum
+
+
+class KKTStrategy(enum.Enum):
+    """How the per-iteration KKT system is factored, as in the reference
+    (socp_tpu/config.py).  Informational: `solve` / `solve_batch` use
+    DENSE (the condensed normal equations, one dense Cholesky); BLOCK_SCHUR
+    names the reference's block-Schur path, which is not ported yet."""
+
+    DENSE = "dense"
+    BLOCK_SCHUR = "block_schur"
 
 
 @dataclasses.dataclass(frozen=True)

@@ -22,6 +22,13 @@ solves (affine solve unrefined, combined solve + one refinement solve);
 the W = I initialization adds one Cholesky and four pair solves.  They are
 the f64 kernels, or the f32 ones under `factor_dtype="float32"` (the f32
 factor under f64 refinement, kkt/dense.py); the carries are f64 either way.
+
+KKT route: by default kkt/dense.py, the port of the reference's
+`ipm/driver.py` + `kkt/dense.py` (Ghat = W^-1 G every iteration).  Under
+`native_dd=True` the structured assembly of kkt/structured.py, the port of
+what the reference's `ipm/dd_driver.solve_core_dd` runs (`factor_dd`,
+`solve_refined_dd`, `precompute_const_gram` once per solve), in f64; the
+rest of the loop is the same code.
 """
 
 from __future__ import annotations
@@ -33,7 +40,7 @@ import torch
 from socp_tpu_torch.cones import ops as cops
 from socp_tpu_torch.cones.layout import ConeLayout
 from socp_tpu_torch.config import SolverConfig
-from socp_tpu_torch.kkt import dense
+from socp_tpu_torch.kkt import dense, structured
 from socp_tpu_torch.kkt.dense import _dot, _mtv, _mv
 from socp_tpu_torch.solution import Status
 
@@ -137,8 +144,20 @@ def solve_core(
         dres = _norm(rx) / norm_c
         return gap, pcost, dcost, relgap, pres, dres
 
+    # native_dd: the structured assembly (kkt/structured.py), its constant
+    # Grams computed once per solve, before the initialization factor
+    cg = structured.precompute_const_gram(layout, G) if cfg.native_dd else None
+
+    def factor(scaling):
+        if cfg.native_dd:
+            return structured.factor(layout, scaling, Paug, A, G,
+                                     cfg.delta_reg, cg=cg)
+        return dense.factor(layout, scaling, Paug, A, G, cfg.delta_reg,
+                            factor_dtype=fdt)
+
     def refined(kkt, bx, by, bz, steps=None):
-        return dense.solve_refined(
+        kkt_mod = structured if cfg.native_dd else dense
+        return kkt_mod.solve_refined(
             layout, kkt, Pmat, A, G, bx, by, bz,
             refine_steps=cfg.refine_steps if steps is None else steps,
             aug_rho=aug_rho,
@@ -158,8 +177,7 @@ def solve_core(
         z0 = zw + torch.clamp_min(margin - cops.lambda_min(layout, zw), 0.0)[:, None] * e
     else:
         sc0 = cops.identity_scaling(layout, B, dtype, device)
-        kkt0 = dense.factor(layout, sc0, Paug, A, G, cfg.delta_reg,
-                            factor_dtype=fdt)
+        kkt0 = factor(sc0)
         x0, _, z0, _ = refined(kkt0, c.new_zeros((B, n)), b, h)
         shat = -z0
         ap = -cops.lambda_min(layout, shat)
@@ -214,8 +232,7 @@ def solve_core(
 
         # ---- NT scaling + KKT factor (the hot block)
         scaling = cops.nt_scale(layout, s, z)
-        kkt = dense.factor(layout, scaling, Paug, A, G, cfg.delta_reg,
-                           factor_dtype=fdt)
+        kkt = factor(scaling)
         lam = scaling.lam
 
         def newton(d_s, steps=None):

@@ -123,7 +123,6 @@ def factor(
 
     Launches: one Cholesky of H; with p > 0 also one tri-pair solve with
     k = p (H^-1 A') and one Cholesky of the p x p Schur complement."""
-    B, p, _ = A.shape
     fdt = factor_dtype or G.dtype
     # .to() of a tensor already in fdt is the tensor itself: no copy in f64
     Ghat = cops.scale_rows_Winv(layout, scaling, G).to(fdt)
@@ -131,15 +130,24 @@ def factor(
     H = Ghat.transpose(1, 2) @ Ghat
     if Paug is not None:
         H = H + Paug.to(fdt)
+    L_H, L_S = factor_condensed(H, A, delta)
+    return DenseKKT(L_H=L_H, L_S=L_S, Ghat=Ghat, scaling=scaling,
+                    scaling_lo=_cast_scaling(scaling, fdt))
+
+
+def factor_condensed(H: torch.Tensor, A: torch.Tensor, delta: float):
+    """(L_H, L_S): the equilibrated factors of an assembled H and, with
+    p > 0, of the Schur complement S = A H^-1 A' (empty for p = 0).  A is
+    in H's dtype."""
+    B, p, _ = A.shape
     L_H = _eq_chol(H, delta)
     if p:
         HinvAT = L_H.solve(A.transpose(1, 2))
         S = A @ HinvAT
         L_S = _eq_chol(S, delta)
     else:
-        L_S = EqChol(L=Ghat.new_zeros((B, 0, 0)), d=Ghat.new_zeros((B, 0)))
-    return DenseKKT(L_H=L_H, L_S=L_S, Ghat=Ghat, scaling=scaling,
-                    scaling_lo=_cast_scaling(scaling, fdt))
+        L_S = EqChol(L=H.new_zeros((B, 0, 0)), d=H.new_zeros((B, 0)))
+    return L_H, L_S
 
 
 def solve(
@@ -155,21 +163,29 @@ def solve(
     and A are cast to it, as the reference does): 1 tri-pair launch for
     p = 0, 3 for p > 0.  The augmented system's multiplier relates to the
     true dy by dy = y_hat + rho*by (exact)."""
-    p = A.shape[1]
     fdt = kkt.Ghat.dtype
     bx, by, bz, A = (t.to(fdt) for t in (bx, by, bz, A))
     bhz = cops.apply_Winv(layout, kkt.scaling_lo, bz)
     btx = bx + _mtv(kkt.Ghat, bhz)
-    if p:
-        t1 = kkt.L_H.solve(btx)
-        yhat = kkt.L_S.solve(_mv(A, t1) - by)
-        dx = kkt.L_H.solve(btx - _mtv(A, yhat))
+    dx, dy = solve_condensed(kkt.L_H, kkt.L_S, A, btx, by, aug_rho)
+    dz = cops.apply_Winv(layout, kkt.scaling_lo, _mv(kkt.Ghat, dx) - bhz)
+    return dx, dy, dz
+
+
+def solve_condensed(L_H: EqChol, L_S: EqChol, A: torch.Tensor,
+                    btx: torch.Tensor, by: torch.Tensor, aug_rho: float = 0.0):
+    """(dx, dy) of the condensed system H dx + A' y = btx, A dx = by through
+    the factors of `factor_condensed`: 1 tri-pair launch for p = 0, 3 for
+    p > 0."""
+    if A.shape[1]:
+        t1 = L_H.solve(btx)
+        yhat = L_S.solve(_mv(A, t1) - by)
+        dx = L_H.solve(btx - _mtv(A, yhat))
         dy = yhat + aug_rho * by if aug_rho else yhat
     else:
         dy = by  # empty
-        dx = kkt.L_H.solve(btx)
-    dz = cops.apply_Winv(layout, kkt.scaling_lo, _mv(kkt.Ghat, dx) - bhz)
-    return dx, dy, dz
+        dx = L_H.solve(btx)
+    return dx, dy
 
 
 def solve_refined(

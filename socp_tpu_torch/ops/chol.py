@@ -18,7 +18,13 @@ Pallas kernels of `socp_tpu/ops/pallas_chol.py` that the solver runs.
                            the routers, counterparts of the reference's
                            `cholesky_dd_v` / `tri_pair_solve_v`: a batch of
                            one instance goes to the single kernels, a larger
-                           batch to the batched ones.
+                           batch to the batched ones.  On CUDA a batch whose
+                           order is above BATCHED_MAX_N (169 in f64, 240 in
+                           f32) goes to the single kernels one instance at a
+                           time, each launch counted as a single one: a
+                           route chosen by shape before any launch, never a
+                           fallback on failure.  Called directly, the
+                           batched kernels still refuse those orders.
 
 Every wrapper takes float64 or float32 and launches the entry point of its
 input's dtype (`csrc/*.cu` export `*_f64` and `*_f32`); a factor and a rhs
@@ -145,8 +151,9 @@ def _order_check(name: str, n: int, dtype: torch.dtype):
         raise ValueError(
             f"{name}: n={n} is above {BATCHED_MAX_N[dtype]} for {dtype}; a "
             "batch of factors above n = 169 (f64) or 240 (f32) needs a blocked "
-            "batched design (ROADMAP.md, queue 1 item 14); a single instance "
-            "goes to chol_single / tri_pair_single"
+            "batched design (ROADMAP.md, queue 1 item 14); the routers "
+            "cholesky / tri_pair_solve send such a batch to chol_single / "
+            "tri_pair_single an instance at a time"
         )
 
 
@@ -258,17 +265,34 @@ def tri_pair_single(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return X
 
 
+def _one_at_a_time(t: torch.Tensor) -> bool:
+    """A CUDA batch of more than one instance whose order is above what the
+    batched kernels take (BATCHED_MAX_N): the routers send it through the
+    single-instance kernels, one instance at a time."""
+    return (t.ndim == 3 and t.shape[0] > 1 and t.device.type == "cuda"
+            and t.dtype in BATCHED_MAX_N
+            and t.shape[1] > BATCHED_MAX_N[t.dtype])
+
+
 def cholesky(H: torch.Tensor) -> torch.Tensor:
     """Lower factors of a (B, n, n) batch: B == 1 through `chol_single`,
-    larger batches through `chol_batched`."""
+    larger batches through `chol_batched`, or on CUDA above its largest
+    order through `chol_single` an instance at a time (`_one_at_a_time`)."""
     if H.ndim == 3 and H.shape[0] == 1:
         return chol_single(H[0])[None]
+    if _one_at_a_time(H):
+        return torch.stack([chol_single(h) for h in H.contiguous()])
     return chol_batched(H)
 
 
 def tri_pair_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(L L')^-1 rhs for a (B, n, n) factor batch and (B, n, k) rhs: B == 1
-    through `tri_pair_single`, larger batches through `tri_pair_batched`."""
+    through `tri_pair_single`, larger batches through `tri_pair_batched`,
+    or on CUDA above its largest order through `tri_pair_single` an
+    instance at a time."""
     if L.ndim == 3 and L.shape[0] == 1 and rhs.ndim == 3:
         return tri_pair_single(L[0], rhs[0])[None]
+    if _one_at_a_time(L) and rhs.ndim == 3 and rhs.shape[0] == L.shape[0]:
+        return torch.stack([tri_pair_single(a, b) for a, b in
+                            zip(L.contiguous(), rhs.contiguous())])
     return tri_pair_batched(L, rhs)

@@ -140,6 +140,49 @@ def test_kernels_refuse_what_they_cannot_hold(card):
     assert chol.chol_launches == before
 
 
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_routers_send_large_batched_orders_to_the_single_kernels(card, dtype):
+    """B = 2 at n = 200 (f64) / 250 (f32), above what the batched kernels
+    take: the routers factor and solve an instance at a time through the
+    single kernels, bit-equal to two single calls; no batched launch."""
+    n = 200 if dtype == torch.float64 else 250
+    suffix = "" if dtype == torch.float64 else "_f32"
+    H = _spd(n, 2, n) if dtype == torch.float64 else _spd32(n, 2, n)
+    H = torch.as_tensor(H, dtype=dtype, device=card)
+    rhs = torch.as_tensor(np.random.default_rng(3).standard_normal((2, n, 3)),
+                          dtype=dtype, device=card)
+    names = [f"{c}{suffix}" for c in ("chol_launches", "tri_pair_launches",
+                                      "chol_single_launches",
+                                      "tri_pair_single_launches")]
+    before = [getattr(chol, c) for c in names]
+    L = chol.cholesky(H)
+    X = chol.tri_pair_solve(L, rhs)
+    delta = [getattr(chol, c) - b for c, b in zip(names, before)]
+    assert delta == [0, 0, 2, 2]
+    assert torch.equal(L, torch.stack([chol.chol_single(h) for h in H]))
+    assert torch.equal(X, torch.stack([chol.tri_pair_single(a, b)
+                                       for a, b in zip(L, rhs)]))
+
+
+def test_card_native_dd_solve_matches_reference(card):
+    """robust_ls_batch(0, 8, n=16, k=24) with native_dd on the card (the
+    ConstGram assembly) against the reference, through the batched f64
+    kernels in the loop's ratios."""
+    data = dict(_cases())["robust_ls"]
+    ref = socp_tpu.solve_batch_raw(**data)
+    counts = ("chol_launches", "tri_pair_launches", "chol_launches_f32",
+              "chol_single_launches")
+    before = [getattr(chol, c) for c in counts]
+    out = socp_tpu_torch.solve_batch_raw(
+        **data, config=socp_tpu_torch.SolverConfig(native_dd=True,
+                                                   factor_dtype="float32"))
+    chols, tris, c32, cs = (getattr(chol, c) - b for c, b in zip(counts, before))
+    assert c32 == cs == 0 and chols >= 2 and tris == 3 * chols + 1
+    np.testing.assert_array_equal(out[4], np.asarray(ref[4]))
+    rp = np.asarray(ref[6])[:, 0]
+    assert np.all(np.abs(out[6][:, 0] - rp) <= 1e-8 * np.maximum(1.0, np.abs(rp)))
+
+
 # n: both sides of the panel and tile edges (32) and of the one-block
 # limits of the kernels before (169 in f64, 240 in f32), and the path's
 # sizes; k: both sides of the pair kernel's 4 columns a pass, and 8
