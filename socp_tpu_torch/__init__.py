@@ -6,7 +6,9 @@ the single-instance solve (`solve`) and the batched lockstep solve
 hand-written CUDA kernels for the Cholesky factor and the triangular-pair
 solve, single-instance and batched (`socp_tpu_torch/csrc/`).
 `SolverConfig(native_dd=True)` takes the reference's structured KKT
-assembly (kkt/structured.py).  Entry points run on the card unless the
+assembly (kkt/structured.py).  `parallel.schur.solve_block` solves a
+block-structured SOCP (per-block factors and the Schur complement of the
+coupling rows) on one device.  Entry points run on the card unless the
 caller passes `device="cpu"`.
 """
 

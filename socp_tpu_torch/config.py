@@ -23,8 +23,10 @@ triangular-pair kernels or their f32 instances (single-instance for
   * `refine_in_f64`                                  -> no-op (the carries,
     and so the residuals, are already f64).
 
-Any other `factor_dtype` raises in `api`.  `ring_schur` belongs to the
-block-Schur path, which this package does not have yet.
+Any other `factor_dtype` raises in `api`.  The block-Schur solve
+(parallel/schur.py) resolves the fields as the reference's block path
+does: it factors in f64 whatever `factor_dtype` says, ignores
+`native_dd`, and on its one device `ring_schur` changes nothing.
 """
 
 from __future__ import annotations
@@ -37,7 +39,8 @@ class KKTStrategy(enum.Enum):
     """How the per-iteration KKT system is factored, as in the reference
     (socp_tpu/config.py).  Informational: `solve` / `solve_batch` use
     DENSE (the condensed normal equations, one dense Cholesky); BLOCK_SCHUR
-    names the reference's block-Schur path, which is not ported yet."""
+    names the block-Schur path of `parallel.schur.solve_block` (per-block
+    factors and the p x p Schur complement of the coupling rows)."""
 
     DENSE = "dense"
     BLOCK_SCHUR = "block_schur"

@@ -44,10 +44,11 @@ def _spd(seed, B, n, kappa=1e8, neg=False):
 
 
 # (B, n): config 3's shapes, both sides of the micro-tile (4) and panel (32)
-# edges, the Cholesky's second schedule (above n = 108) and the largest n
+# edges, the Cholesky's second schedule (above n = 108), the largest n and
+# config 4's blocks (K = 10,240, nb = 10)
 BATCHED_F64 = [(256, 102), (8, 37), (256, 3), (4, 1), (64, 2), (64, 5),
                (64, 31), (64, 32), (64, 33), (64, 65), (64, 108), (64, 109),
-               (16, 169), (4096, 102)]
+               (16, 169), (4096, 102), (10240, 10)]
 
 
 @pytest.mark.parametrize("B,n", BATCHED_F64)
@@ -59,10 +60,12 @@ def test_chol_kernel_matches_plain(card, B, n):
     assert torch.equal(L, chol.chol_batched_plain(H))
 
 
-@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 37, 3), (256, 3, 3)]
+@pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 37, 3), (256, 3, 3),
+                                   (10240, 10, 8)]
                          + [(B, n, k) for B, n in BATCHED_F64[3:] for k in (1, 3)])
 def test_tri_pair_kernel_matches_plain(card, B, n, k):
-    """k = 3 at n = 169 is new: one block no longer holds the rhs beside L."""
+    """k = 3 at n = 169 is new: one block no longer holds the rhs beside L.
+    (10240, 10, 8) is config 4's H^-1 A'."""
     L = chol.chol_batched(torch.as_tensor(_spd(n + k, B, n), device=card))
     rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((B, n, k)),
                           device=card)
@@ -164,6 +167,37 @@ def test_routers_send_large_batched_orders_to_the_single_kernels(card, dtype):
                                        for a, b in zip(L, rhs)]))
 
 
+def test_card_block_solve_matches_reference(card):
+    """Config 4's block shape at K = 32 through the port's solve_block on
+    the card (default device) against the reference's on a 1-device mesh:
+    the same status and iterations, pcost and dcost within 1e-9, the
+    iterates within 1e-6; each factor is 1 chol_batched (the blocks), 1
+    chol_single (the Schur complement), 9 tri_pair_batched and 4
+    tri_pair_single."""
+    from socp_tpu.parallel.mesh import block_mesh
+    from socp_tpu.parallel.schur import random_block_problem, solve_block
+    from socp_tpu.problem import ConeDims
+    from socp_tpu_torch.parallel.schur import solve_block as port_solve_block
+
+    prob, _ = random_block_problem(0, K=32, nb=10, p=8,
+                                   block_dims=ConeDims(l=4, qs=(6,)))
+    ref = solve_block(prob, mesh=block_mesh(1))
+    counts = ("chol_launches", "chol_single_launches", "tri_pair_launches",
+              "tri_pair_single_launches", "chol_launches_f32",
+              "tri_pair_launches_f32")
+    before = [getattr(chol, c) for c in counts]
+    out = port_solve_block(prob)
+    launches = [getattr(chol, c) - b for c, b in zip(counts, before)]
+    assert out[4] == ref[4] == socp_tpu_torch.Status.OPTIMAL
+    assert out[5] == ref[5]
+    for j in (0, 1):
+        assert abs(out[6][j] - ref[6][j]) <= 1e-9 * max(1.0, abs(ref[6][j]))
+    for i in range(4):
+        np.testing.assert_allclose(out[i], ref[i], rtol=0, atol=1e-6)
+    factors = out[5] + 2
+    assert launches == [factors, factors, 9 * factors, 4 * factors, 0, 0]
+
+
 def test_card_native_dd_solve_matches_reference(card):
     """robust_ls_batch(0, 8, n=16, k=24) with native_dd on the card (the
     ConstGram assembly) against the reference, through the batched f64
@@ -184,9 +218,10 @@ def test_card_native_dd_solve_matches_reference(card):
 
 
 # n: both sides of the panel and tile edges (32) and of the one-block
-# limits of the kernels before (169 in f64, 240 in f32), and the path's
-# sizes; k: both sides of the pair kernel's 4 columns a pass, and 8
-SINGLE_NS = [1, 2, 31, 32, 33, 64, 65, 169, 170, 240, 241, 500, 768, 1000]
+# limits of the kernels before (169 in f64, 240 in f32), and the paths'
+# sizes (8: config 4's Schur factor); k: both sides of the pair kernel's 4
+# columns a pass, and 8
+SINGLE_NS = [1, 2, 8, 31, 32, 33, 64, 65, 169, 170, 240, 241, 500, 768, 1000]
 SINGLE_KS = [1, 5, 8, 9]
 
 

@@ -15,6 +15,7 @@ from socp_tpu_torch.carry import from_reference_warm
 from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.models.portfolio import portfolio
 from socp_tpu_torch.models.robust_ls import robust_ls_batch
+from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -41,8 +42,9 @@ def test_imports_without_jax_and_without_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert len(names) >= 19, names
-    for new in ("models.random_socp", "models.portfolio", "carry", "api"):
+    assert len(names) >= 21, names
+    for new in ("models.random_socp", "models.portfolio", "carry", "api",
+                "parallel.schur"):
         assert f"socp_tpu_torch.{new}" in names
 
 
@@ -56,6 +58,8 @@ def test_entry_points_default_to_cuda():
         socp_tpu_torch.prepare_batch(c, G, h, dims)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         socp_tpu_torch.solve(portfolio(0, n=6, k=2)[0])
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        solve_block(random_block_problem(0, K=2, nb=6, p=3)[0])
     layout = make_layout(dims)
     x, s = np.zeros((2, 6)), np.zeros((2, layout.m_pad))
     with pytest.raises(RuntimeError, match="device='cpu'"):
