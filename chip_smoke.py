@@ -11,8 +11,10 @@ Phases, each printing one JSON line to stdout:
               from a numpy seed, at the main path's shapes, config 4's
               blocks (B = 10,240, n = 10, also k = 8) and across the
               micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and
-              3; a matrix that is not positive definite must give a
-              non-finite factor.  Timed at config 3's and config 4's shapes.
+              3, and config 5's (65,536 scenarios and a chunk of 2048, n =
+              21 and the 1 x 1 Schur complement); a matrix that is not
+              positive definite must give a non-finite factor.  Timed at
+              config 3's, config 4's and config 5's shapes.
               Timed two ways (`timed`): call_ms, CUDA events around one
               call, host work included (median of 15), and kernel_ms, the
               device time of the kernels one call enqueues, from
@@ -68,6 +70,28 @@ Phases, each printing one JSON line to stdout:
               path (chol_batched on the blocks, chol_single on the 8 x 8
               Schur complement, their pair solves); wall s and iterations/s
               of the second solve; then its profile ("config4").
+  7d. admm    BASELINE config 5 (scripts/bench_all.py:177-200):
+              scenario_portfolio(0, n=20, n_scenarios=65536) (nv = 21,
+              m_pad = 54, p = 1) through parallel.admm.admm_consensus on
+              "cuda", rho = 1, two warm-up rounds, then 10 timed rounds,
+              three ways: (a) SolverConfig(factor_dtype="dd32") with
+              scenario_chunk=2048, bench_all's call off the TPU; (b) the
+              same as one batch of 65,536; (c) (b) with native_dd=True.
+              Held: every inner solve OPTIMAL, (a) and (b) agree (w_bar
+              within 1e-9), (c) and (b) within 1e-7, the launch ratios of a
+              p = 1 inner solve (2 chol_batched and 10 tri_pair_batched an
+              iteration, 2 + 13 for a cold start) and no other kernel; per
+              round its seconds and launches (read at the round's one
+              device read, admm._fetch), the solve's peak device memory.
+              At bench_all's small scale (S = 256): 10 rounds on the card
+              against a CPU re-run of the port (the same rounds and rho,
+              w_bar within 1e-8, pres and dres within 1e-6 relative) and
+              the CPU re-run against the reference's numbers (REF5); then
+              a run to tol 1e-6 held to tests/test_admm.py:12-30's checks
+              against the extensive form solved by `solve` on the card.
+              Then profiles of one round of (b) ("config5", data
+              placement and a cold start included) and of (b)'s timed
+              call of 10 rounds ("config5_rounds").
   8. f32_kernels  the f32 instances of the four kernels (the factor of the
               mixed-precision mode, factor_dtype="float32") against their
               plain versions, bit for bit, on f32 SPD batches with kappa =
@@ -96,9 +120,9 @@ Phases, each printing one JSON line to stdout:
               Cholesky at n = 128, runs the f32 single kernel.
 Then a {"kernels": [...]} line, one row per TPU kernel (11): the f64
 batched kernels at config 3's shapes, with their launches in phase 5 (each
-f64 row also has "launches_by_path": phases 5, 5n, 7, 7n, 7b and 7c, and
-"by_shape": its numbers at config 4's shapes, and for the single ones at
-the single path's); the
+f64 row also has "launches_by_path": phases 5, 5n, 7, 7n, 7b, 7c and
+7d, and "by_shape": its numbers at config 4's and config 5's shapes, and
+for the single ones at the single path's); the
 f64 single-instance ones at n = 500, k = 1 with the path's other shapes
 beside, with their launches in phase 7's default run of config 2 and, per
 config, of configs 1 and 2; the f32 Cholesky and pair solve at B = 4096,
@@ -113,6 +137,7 @@ CUDA and the repository: without either it exits non-zero.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import re
 import statistics
@@ -126,6 +151,16 @@ import torch
 SEED = 0
 B_MAIN, N_MAIN = 4096, 100          # config 3: robust_ls_batch(0, 4096, n=100)
 K4, NB4, P4 = 10240, 10, 8          # config 4: K blocks of nb vars, p coupling rows
+# config 5: scenario_portfolio(0, n=N5, n_scenarios=S5), inner solves in
+# chunks of CHUNK5 (scripts/bench_all.py:177-200); S5_SMALL is its small
+# scale, ROUNDS5 its timed rounds
+S5, N5, CHUNK5, S5_SMALL, ROUNDS5 = 65536, 20, 2048, 256, 10
+# the reference at S5_SMALL, 10 rounds: socp_tpu.parallel.admm.admm_consensus
+# with SolverConfig(factor_dtype="dd32"), as bench_all calls it, on the CPU
+# with x64 (tests/test_torch_admm.py holds the port's CPU path to the same
+# numbers)
+REF5 = {"rounds": 10, "rho": 1.0, "pres": 0.010473211701971484,
+        "dres": 0.02789616956783297, "objective": -0.1839553781855421}
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP64_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP64 tensor core (the
                                     # card's fastest FP64 rate: a lower bound)
@@ -148,7 +183,8 @@ SINGLE_PAIR_AT = {"f64": ((1, 1), (5, 1), (8, 1), (50, 1), (50, 5), (500, 1)),
 # up to the largest n the wrappers take
 F64_BATCHED = ((B_MAIN, N_MAIN + 2), (K4, NB4), (8, 37), (B_MAIN, 3), (64, 1),
                (64, 2), (64, 4), (64, 5), (64, 31), (64, 32), (64, 33),
-               (64, 65), (64, 108), (64, 109), (64, 169))
+               (64, 65), (64, 108), (64, 109), (64, 169), (S5, N5 + 1),
+               (CHUNK5, N5 + 1), (S5, 1), (CHUNK5, 1))
 F32_BATCHED = ((B_MAIN, 1), (B_MAIN, 3), (B_MAIN, 37), (B_MAIN, 102),
                (64, 2), (64, 5), (64, 31), (64, 32), (64, 33), (64, 65),
                (64, 108), (64, 109), (256, 169), (256, 240))
@@ -441,10 +477,11 @@ def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
 
 def phase_kernels():
     """The f64 batched kernels against their plain versions, bit for bit,
-    at config 3's and config 4's shapes and across the micro-tile, panel
-    and schedule edges (F64_BATCHED), k = 1 and 3 (and P4 at config 4's
-    blocks); the non-PD check; timings at config 3's shape and at config
-    4's (B = 10,240, n = 10; the pair solve at k = 8 and 1)."""
+    at config 3's, config 4's and config 5's shapes and across the
+    micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and 3 (and
+    P4 at config 4's blocks); the non-PD check; timings at config 3's
+    shape, at config 4's (B = 10,240, n = 10; the pair solve at k = 8 and
+    1) and at config 5's (B = 2048 and 65,536, n = 21, k = 1)."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED)
@@ -472,19 +509,30 @@ def phase_kernels():
     timing = batched_timing(torch.float64, rng)
     t4 = batched_timing(torch.float64, rng, K4, NB4, ks=(P4, 1))
     at = f"B={K4},n={NB4}"
-    block = {"chol_batched": {at: t4["chol_batched"]},
-             "tri_pair_batched": {f"{at},k={P4}": t4["tri_pair_batched"],
-                                  f"{at},k=1": t4["tri_pair_batched k=1"]}}
+    shapes = {"config4": {
+        "chol_batched": {at: t4["chol_batched"]},
+        "tri_pair_batched": {f"{at},k={P4}": t4["tri_pair_batched"],
+                             f"{at},k=1": t4["tri_pair_batched k=1"]}},
+        "config5": {"chol_batched": {}, "tri_pair_batched": {}}}
+    # config 5's H (n = 21) in a chunk of 2048 and in one batch of 65,536
+    for B in (CHUNK5, S5):
+        t5 = batched_timing(torch.float64, rng, B, N5 + 1)
+        at = f"B={B},n={N5 + 1}"
+        shapes["config5"]["chol_batched"][at] = t5["chol_batched"]
+        shapes["config5"]["tri_pair_batched"][f"{at},k=1"] = t5["tri_pair_batched"]
     emit({"phase": "kernels", "batched": [list(x) for x in F64_BATCHED],
           "ks": [1, 3], "block_ks": [1, 3, P4], "bit_equal": True,
           "max_abs_err": {k: max(v) for k, v in results.items()},
           "timing_shape": {"B": B_MAIN, "n": nv, "k": 1},
           **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
              for k, v in timing.items()},
-          "config4": {name: {a: {kk: vv for kk, vv in t.items() if kk != "bound"}
-                             for a, t in by.items()}
-                      for name, by in block.items()}})
-    return results, timing, block
+          **{cfg: {name: {a: {kk: vv for kk, vv in t.items() if kk != "bound"}
+                          for a, t in by.items()}
+                   for name, by in per.items()}
+             for cfg, per in shapes.items()}})
+    by_shape = {name: {a: t for per in shapes.values() for a, t in per[name].items()}
+                for name in ("chol_batched", "tri_pair_batched")}
+    return results, timing, by_shape
 
 
 def single_timing(dtype, rng):
@@ -971,6 +1019,197 @@ def phase_block_schur():
     return launches, run, statistics.median(reps)
 
 
+@contextlib.contextmanager
+def admm_rounds():
+    """Within it, each ADMM round appends (host clock, launch counts) to
+    the list it yields, at the round's one device read
+    (parallel.admm._fetch, which waits for the round's work)."""
+    from socp_tpu_torch.parallel import admm
+
+    fetch, marks = admm._fetch, []
+
+    def marked(*args):
+        out = fetch(*args)
+        marks.append((time.perf_counter(), read_counts()))
+        return out
+
+    admm._fetch = marked
+    try:
+        yield marks
+    finally:
+        admm._fetch = fetch
+
+
+def run_admm(data, cfg, chunk, rounds, device="cuda", tol=1e-5):
+    """admm_consensus on scenario_portfolio's output, as bench_all calls it
+    (rho = 1)."""
+    from socp_tpu_torch.parallel.admm import admm_consensus
+
+    c, G, h, dims, A, b, info = data
+    return admm_consensus(c, G, h, dims, info["n"], A=A, b=b, rho=1.0,
+                          outer_iters=rounds, tol=tol, config=cfg,
+                          scenario_chunk=chunk, device=device)
+
+
+def timed_admm(label, data, cfg, chunk, rounds):
+    """bench_all's config-5 measurement on the card: two warm-up rounds (a
+    call of their own), then `rounds` timed rounds from a fresh start.
+    Held: every inner solve OPTIMAL, the rounds run, only chol_batched and
+    tri_pair_batched launched, in the ratios of a p = 1 inner solve (each
+    lockstep iteration 2 + 10, each cold start 2 + 13 more: the chunks of
+    round 1).  Returns (result, launches, wall s of the timed call)."""
+    S = data[0].shape[0]
+    n_ch = S // chunk if chunk and chunk < S else 1
+    run_admm(data, cfg, chunk, 2)                    # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    held = torch.cuda.memory_allocated()             # earlier phases' tensors
+    reset_counts()
+    with admm_rounds() as marks:
+        t0 = time.perf_counter()
+        res = run_admm(data, cfg, chunk, rounds)
+        wall = time.perf_counter() - t0
+    launches = read_counts()
+    peak_gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+    check(res.inner_status_ok, f"admm {label}: an inner solve was not OPTIMAL")
+    check(res.outer_iterations == rounds == len(marks),
+          f"admm {label}: {res.outer_iterations} rounds, {len(marks)} reads")
+    none_of(launches, ("chol_single", "tri_pair_single") + F32_KERNELS,
+            f"admm {label}")
+    per_round, prev_t, prev = [], t0, {k: 0 for k in launches}
+    for r, (t, counts) in enumerate(marks):
+        chol_r = counts["chol_batched"] - prev["chol_batched"]
+        tri_r = counts["tri_pair_batched"] - prev["tri_pair_batched"]
+        cold = n_ch if r == 0 else 0
+        check(chol_r > 2 * cold and tri_r - 13 * cold == 5 * (chol_r - 2 * cold),
+              f"admm {label} round {r}: {chol_r} chol_batched, {tri_r} "
+              "tri_pair_batched")
+        per_round.append({"s": t - prev_t, "chol_batched": chol_r,
+                          "tri_pair_batched": tri_r,
+                          # lockstep iterations of the round, over its chunks
+                          "lockstep_iterations": (chol_r - 2 * cold) // 2})
+        prev_t, prev = t, counts
+    print(f"chip_smoke: config 5 ({label}): {wall / rounds!r} s a round, "
+          f"{rounds} rounds, pres {res.primal_res!r}, dres {res.dual_res!r}, "
+          f"rho {res.rho!r}, inner_status_ok {res.inner_status_ok}, objective "
+          f"{res.objective!r}, peak {peak_gb!r} GB", flush=True)
+    emit({"phase": "admm", "run": label, "S": S, "scenario_chunk": chunk,
+          "chunks": n_ch, "native_dd": cfg.native_dd, "rounds": rounds,
+          "s_per_round": wall / rounds, "wall_s": wall,
+          "pres": res.primal_res, "dres": res.dual_res, "rho": res.rho,
+          "inner_status_ok": res.inner_status_ok, "objective": res.objective,
+          "launches": launches,
+          "launches_per_round": {k: launches[k] / rounds
+                                 for k in ("chol_batched", "tri_pair_batched")},
+          "per_round": per_round, "peak_device_gb_of_the_solve": peak_gb})
+    return res, launches, wall
+
+
+def phase_admm():
+    """BASELINE config 5 through parallel.admm.admm_consensus on the card
+    (module doc, phase 7d).  Returns the launches of runs (a), (b) and (c)
+    and, for the profiles, {label: (a call, its unprofiled wall s)}: one
+    round of (b) ("config5": data placement and a cold round) and (b)'s
+    timed call (two calls back, "config5_rounds": the 10 rounds)."""
+    from socp_tpu_torch import SolverConfig, Status, solve
+    from socp_tpu_torch.cones.layout import make_layout
+    from socp_tpu_torch.models.stochastic import extensive_form, scenario_portfolio
+
+    cfg = SolverConfig(factor_dtype="dd32")
+    t0 = time.perf_counter()
+    data = scenario_portfolio(SEED, n=N5, n_scenarios=S5)
+    setup_s = time.perf_counter() - t0
+    c, G, h, dims = data[:4]
+    m_pad = make_layout(dims).m_pad
+    check(c.shape == (S5, N5 + 1) and G.shape == (S5, 47, N5 + 1) and m_pad == 54,
+          f"config 5 shape: c {c.shape}, G {G.shape}, m_pad {m_pad}")
+
+    res_a, launches_a, _ = timed_admm("a_chunked", data, cfg, CHUNK5, ROUNDS5)
+    res_b, launches_b, wall_b = timed_admm("b_one_batch", data, cfg, None,
+                                           ROUNDS5)
+    res_c, launches_c, _ = timed_admm(
+        "c_native_dd", data, SolverConfig(factor_dtype="dd32", native_dd=True),
+        None, ROUNDS5)
+    ab = float(np.abs(res_a.w_bar - res_b.w_bar).max())
+    ab_bits = bool(np.array_equal(res_a.w_bar, res_b.w_bar))
+    bc = float(np.abs(res_c.w_bar - res_b.w_bar).max())
+    print(f"chip_smoke: config 5 w_bar, chunked against one batch: max abs "
+          f"{ab!r}, bit-equal {ab_bits}; native_dd against default: max abs "
+          f"{bc!r}", flush=True)
+    check(ab <= 1e-9, f"admm: chunked and unchunked w_bar differ by {ab}")
+    check(bc <= 1e-7, f"admm: native_dd and default w_bar differ by {bc}")
+
+    # bench_all's small scale: the card against the port's CPU path, the
+    # CPU path against the reference's numbers
+    small = scenario_portfolio(SEED, n=N5, n_scenarios=S5_SMALL)
+    chunk = min(S5_SMALL, CHUNK5)
+    card = run_admm(small, cfg, chunk, 10)
+    t0 = time.perf_counter()
+    cpu = run_admm(small, cfg, chunk, 10, device="cpu")
+    cpu_s = time.perf_counter() - t0
+    w_err = float(np.abs(card.w_bar - cpu.w_bar).max())
+    rel = {k: abs(getattr(card, k) - getattr(cpu, k)) / abs(getattr(cpu, k))
+           for k in ("primal_res", "dual_res")}
+    check(card.inner_status_ok and cpu.inner_status_ok
+          and (card.outer_iterations, card.rho) == (cpu.outer_iterations, cpu.rho)
+          and w_err <= 1e-8 and max(rel.values()) <= 1e-6,
+          f"admm S={S5_SMALL}: card {card} against CPU {cpu}")
+    ref_err = {"pres_rel": abs(cpu.primal_res - REF5["pres"]) / REF5["pres"],
+               "dres_rel": abs(cpu.dual_res - REF5["dres"]) / REF5["dres"],
+               "objective_abs": abs(cpu.objective - REF5["objective"])}
+    check(cpu.outer_iterations == REF5["rounds"] and cpu.rho == REF5["rho"]
+          and ref_err["pres_rel"] <= 1e-6 and ref_err["dres_rel"] <= 1e-6
+          and ref_err["objective_abs"] <= 1e-7,
+          f"admm S={S5_SMALL}: CPU {cpu} against the reference {REF5}")
+
+    # to tol 1e-6: tests/test_admm.py:12-30's checks at this scale
+    t0 = time.perf_counter()
+    conv = run_admm(small, cfg, None, 200, tol=1e-6)
+    conv_s = time.perf_counter() - t0
+    ext = solve(extensive_form(*small), config=cfg, device="cuda")
+    gap = abs(conv.objective - ext.pcost)
+    w = conv.w_bar
+    print(f"chip_smoke: config 5 at S={S5_SMALL} to tol 1e-6: "
+          f"{conv.outer_iterations} rounds, objective {conv.objective!r}; the "
+          f"extensive form's pcost {ext.pcost!r} in {ext.iterations} "
+          f"iterations: gap {gap!r}", flush=True)
+    check(conv.inner_status_ok and conv.primal_res <= 1e-6
+          and conv.dual_res <= 1e-6 and ext.status == Status.OPTIMAL
+          and gap <= 5e-4 * max(1.0, abs(ext.pcost))
+          and abs(w.sum() - 1.0) <= 1e-6 and w.min() >= -1e-6,
+          f"admm S={S5_SMALL} to tol 1e-6: {conv}, extensive form {ext}")
+    emit({"phase": "admm", "run": "checks",
+          "config": f"scenario_portfolio({SEED}, n={N5}, n_scenarios={S5}), "
+                    "factor_dtype='dd32', rho=1.0",
+          "nv": N5 + 1, "m_pad": m_pad, "setup_s": setup_s,
+          "w_bar_chunked_vs_one_batch": ab, "w_bar_bit_equal": ab_bits,
+          "w_bar_native_vs_default": bc,
+          "small": {"S": S5_SMALL, "card_vs_cpu_w_bar": w_err,
+                    "card_vs_cpu_rel": rel, "cpu_vs_reference": ref_err,
+                    "cpu_s": cpu_s, "pres": card.primal_res,
+                    "dres": card.dual_res, "objective": card.objective,
+                    "w_bar_sum": float(card.w_bar.sum()),
+                    "w_bar_min": float(card.w_bar.min())},
+          "converged": {"S": S5_SMALL, "rounds": conv.outer_iterations,
+                        "wall_s": conv_s, "pres": conv.primal_res,
+                        "dres": conv.dual_res, "rho": conv.rho,
+                        "objective": conv.objective,
+                        "extensive_pcost": ext.pcost,
+                        "extensive_iterations": ext.iterations,
+                        "objective_gap": gap, "w_bar_sum": float(w.sum()),
+                        "w_bar_min": float(w.min())}})
+
+    def one_round():                 # data placement and a cold round of (b)
+        return run_admm(data, cfg, None, 1)
+
+    t0 = time.perf_counter()
+    one_round()
+    one_s = time.perf_counter() - t0
+    runs = {"config5": (one_round, one_s),
+            "config5_rounds": (lambda: run_admm(data, cfg, None, ROUNDS5), wall_b)}
+    return {"a": launches_a, "b": launches_b, "c": launches_c}, runs
+
+
 def f32_spd(rng, B, n, neg=False):
     return torch.as_tensor(spd_batch(rng, B, n, kappa=1e4, neg=neg),
                            dtype=torch.float32, device="cuda")
@@ -1344,6 +1583,9 @@ def main():
     lb_launches = phase_large_batch()
     b_launches, b_run, b_solve_s = phase_block_schur()
     phase_profile(b_run, b_solve_s, "config4")
+    a_launches, a_runs = phase_admm()
+    for label, (run, run_s) in a_runs.items():
+        phase_profile(run, run_s, label)
     f_errs, f_timing = phase_f32_kernels()
     f_launches, f_fn, f_args, f_solve_s = phase_f32factor()
     phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
@@ -1383,7 +1625,10 @@ def main():
                    **{c: v[name] for c, v in s_launches.items()},
                    **{c: v[name] for c, v in sn_launches.items()},
                    "large_batch": lb_launches[name],
-                   "block_schur": b_launches[name]}
+                   "block_schur": b_launches[name],
+                   "admm": a_launches["b"][name],
+                   "admm_chunked": a_launches["a"][name],
+                   "admm_native": a_launches["c"][name]}
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                "launches_by_path": by_path,
@@ -1399,7 +1644,8 @@ def main():
                        by_shape={a: numbers(t) for a, t in s_timing[name].items()})
         else:
             row.update(numbers(timing[name]))
-        # config 4's shapes (the blocks; the Schur factor, n = 8)
+        # config 4's shapes (the blocks; the Schur factor, n = 8) and
+        # config 5's (the scenarios' H, n = 21)
         row["by_shape"] = {**row.get("by_shape", {}),
                            **{a: numbers(t)
                               for a, t in block_timing.get(name, {}).items()}}

@@ -8,8 +8,11 @@ solve, single-instance and batched (`socp_tpu_torch/csrc/`).
 `SolverConfig(native_dd=True)` takes the reference's structured KKT
 assembly (kkt/structured.py).  `parallel.schur.solve_block` solves a
 block-structured SOCP (per-block factors and the Schur complement of the
-coupling rows) on one device.  Entry points run on the card unless the
-caller passes `device="cpu"`.
+coupling rows) on one device.  `parallel.admm.admm_consensus` runs
+consensus ADMM over a batch of scenario SOCPs (the inner solves are the
+batched lockstep IPM; `models.stochastic` builds the two-stage portfolio
+of BASELINE config 5, `utils.checkpoint` its snapshots).  Entry points run
+on the card unless the caller passes `device="cpu"`.
 """
 
 from socp_tpu_torch.api import (prepare_batch, solve, solve_batch,

@@ -1,2 +1,3 @@
-"""Block-structured solves (the port of `socp_tpu/parallel/`): so far the
-block-Schur KKT of `schur.py` on one device."""
+"""Decomposed solves (the port of `socp_tpu/parallel/`), on one device:
+the block-Schur KKT of `schur.py` (BASELINE config 4) and the consensus
+ADMM over scenario subproblems of `admm.py` (BASELINE config 5)."""

@@ -19,6 +19,7 @@ from socp_tpu_torch.cones import ops as tops
 from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.kkt import structured
 from socp_tpu_torch.models.antenna import antenna_design, sidelobe_level
+from tests._host_memory import release_host_memory  # noqa: F401
 
 
 def test_antenna_instance_is_the_references():

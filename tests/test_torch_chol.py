@@ -21,6 +21,7 @@ import torch
 from socp_tpu.ops import dd as ddm
 from socp_tpu.ops.pallas_chol import cholesky_dd_batched, tri_pair_solve_batched
 from socp_tpu_torch.ops import chol
+from tests._host_memory import release_host_memory  # noqa: F401
 
 B = 8
 

@@ -18,6 +18,7 @@ from socp_tpu.problem import ConeDims as RConeDims
 from socp_tpu_torch.cones import ops as tops
 from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.problem import ConeDims
+from tests._host_memory import release_host_memory  # noqa: F401
 
 B = 5
 RTOL, ATOL = 1e-12, 1e-13

@@ -22,6 +22,7 @@ import socp_tpu_torch
 from socp_tpu.models.random_socp import random_socp
 from socp_tpu.models.robust_ls import robust_ls_batch
 from socp_tpu_torch.ops import chol, probes
+from tests._host_memory import release_host_memory  # noqa: F401
 
 pytestmark = pytest.mark.cuda
 
@@ -44,11 +45,12 @@ def _spd(seed, B, n, kappa=1e8, neg=False):
 
 
 # (B, n): config 3's shapes, both sides of the micro-tile (4) and panel (32)
-# edges, the Cholesky's second schedule (above n = 108), the largest n and
-# config 4's blocks (K = 10,240, nb = 10)
+# edges, the Cholesky's second schedule (above n = 108), the largest n,
+# config 4's blocks (K = 10,240, nb = 10) and a chunk of config 5's
+# scenarios (2048, nv = 21)
 BATCHED_F64 = [(256, 102), (8, 37), (256, 3), (4, 1), (64, 2), (64, 5),
                (64, 31), (64, 32), (64, 33), (64, 65), (64, 108), (64, 109),
-               (16, 169), (4096, 102), (10240, 10)]
+               (16, 169), (4096, 102), (10240, 10), (2048, 21)]
 
 
 @pytest.mark.parametrize("B,n", BATCHED_F64)
@@ -196,6 +198,37 @@ def test_card_block_solve_matches_reference(card):
         np.testing.assert_allclose(out[i], ref[i], rtol=0, atol=1e-6)
     factors = out[5] + 2
     assert launches == [factors, factors, 9 * factors, 4 * factors, 0, 0]
+
+
+def test_card_admm_matches_reference(card):
+    """Config 5's scenario shape at S = 64 (scenario_portfolio(0, n=20)),
+    10 rounds of the port's admm_consensus on the card (default device)
+    against the reference's on the CPU: the same rounds, rho and inner
+    status, w_bar, x and the objective within 1e-8 (the card's products
+    sum in another order than XLA's); each inner IPM iteration launches 2
+    chol_batched and 10 tri_pair_batched, the first round's cold starts 2
+    and 13 more, and nothing else."""
+    from socp_tpu.models.stochastic import scenario_portfolio
+    from socp_tpu.parallel.admm import admm_consensus
+    from socp_tpu_torch.parallel.admm import admm_consensus as port_admm
+
+    c, G, h, dims, A, b, info = scenario_portfolio(0, n=20, n_scenarios=64)
+    kw = dict(n_consensus=info["n"], A=A, b=b, rho=1.0, outer_iters=10)
+    ref = admm_consensus(c, G, h, dims, **kw)
+    counts = ("chol_launches", "tri_pair_launches", "chol_single_launches",
+              "tri_pair_single_launches", "chol_launches_f32",
+              "tri_pair_launches_f32")
+    before = [getattr(chol, name) for name in counts]
+    out = port_admm(c, G, h, dims, **kw)
+    chols, tris, *others = (getattr(chol, name) - n
+                            for name, n in zip(counts, before))
+    assert out.inner_status_ok and ref.inner_status_ok
+    assert (out.outer_iterations, out.rho) == (ref.outer_iterations, ref.rho)
+    np.testing.assert_allclose(out.w_bar, ref.w_bar, rtol=0, atol=1e-8)
+    np.testing.assert_allclose(out.x, ref.x, rtol=0, atol=1e-8)
+    assert abs(out.objective - ref.objective) <= 1e-8
+    assert others == [0, 0, 0, 0]
+    assert chols > 2 and tris - 13 == 5 * (chols - 2)
 
 
 def test_card_native_dd_solve_matches_reference(card):

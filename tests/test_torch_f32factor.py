@@ -49,6 +49,7 @@ from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.kkt import dense as tdense
 from socp_tpu_torch.ops import chol
 from socp_tpu_torch.problem import ConeDims
+from tests._host_memory import release_host_memory  # noqa: F401
 
 F32 = dict(factor_dtype="float32")
 STRICT, FEAS_INACC, GAP_INACC, PCOST_REL = 1e-8, 1e-4, 5e-5, 5e-5

@@ -15,7 +15,10 @@ from socp_tpu_torch.carry import from_reference_warm
 from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.models.portfolio import portfolio
 from socp_tpu_torch.models.robust_ls import robust_ls_batch
+from socp_tpu_torch.models.stochastic import scenario_portfolio
+from socp_tpu_torch.parallel.admm import admm_consensus
 from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
+from tests._host_memory import release_host_memory  # noqa: F401
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -42,9 +45,10 @@ def test_imports_without_jax_and_without_the_reference():
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stderr
     names = res.stdout.split()
-    assert len(names) >= 21, names
+    assert len(names) >= 28, names
     for new in ("models.random_socp", "models.portfolio", "carry", "api",
-                "parallel.schur"):
+                "parallel.schur", "parallel.admm", "models.stochastic",
+                "utils.checkpoint"):
         assert f"socp_tpu_torch.{new}" in names
 
 
@@ -60,6 +64,10 @@ def test_entry_points_default_to_cuda():
         socp_tpu_torch.solve(portfolio(0, n=6, k=2)[0])
     with pytest.raises(RuntimeError, match="device='cpu'"):
         solve_block(random_block_problem(0, K=2, nb=6, p=3)[0])
+    c5, G5, h5, dims5, A5, b5, info = scenario_portfolio(0, n=4, k=2,
+                                                         n_scenarios=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        admm_consensus(c5, G5, h5, dims5, info["n"], A=A5, b=b5, outer_iters=1)
     layout = make_layout(dims)
     x, s = np.zeros((2, 6)), np.zeros((2, layout.m_pad))
     with pytest.raises(RuntimeError, match="device='cpu'"):

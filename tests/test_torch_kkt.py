@@ -19,6 +19,7 @@ from socp_tpu_torch.cones import ops as tops
 from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.kkt import dense as tdense
 from socp_tpu_torch.problem import ConeDims
+from tests._host_memory import release_host_memory  # noqa: F401
 
 B, N = 4, 8
 DIMS = (3, (1, 4, 9))

@@ -28,6 +28,7 @@ import torch
 from jax.experimental import pallas as pl
 
 from socp_tpu_torch.ops import chol, probes
+from tests._host_memory import release_host_memory  # noqa: F401
 
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 

@@ -20,6 +20,7 @@ from socp_tpu_torch import SolverConfig, api
 from socp_tpu_torch.models.portfolio import portfolio
 from socp_tpu_torch.models.robust_ls import robust_ls_batch
 from socp_tpu_torch.ops import chol
+from tests._host_memory import release_host_memory  # noqa: F401
 
 
 def test_native_dd_overrides_factor_dtype(monkeypatch):

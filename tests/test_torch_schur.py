@@ -21,6 +21,7 @@ from socp_tpu_torch.ops import chol
 from socp_tpu_torch.parallel.schur import (BlockSocpProblem,
                                            random_block_problem, solve_block)
 from socp_tpu_torch.problem import ConeDims
+from tests._host_memory import release_host_memory  # noqa: F401
 
 C4_DIMS = dict(nb=10, p=8)          # config 4's block: l = 4, qs = (6,)
 

@@ -36,6 +36,7 @@ from socp_tpu_torch import SolverConfig
 from socp_tpu_torch.carry import problem_from_reference
 from socp_tpu_torch.models import portfolio, random_socp
 from socp_tpu_torch.ops import chol
+from tests._host_memory import release_host_memory  # noqa: F401
 
 
 def _spd(rng, n, kappa=1e8):

@@ -18,6 +18,7 @@ from socp_tpu.models.random_socp import primal_infeasible_lp, random_socp
 from socp_tpu.models.robust_ls import robust_ls_batch
 from socp_tpu_torch import SolverConfig
 from socp_tpu_torch.carry import from_reference_warm
+from tests._host_memory import release_host_memory  # noqa: F401
 
 
 def _robust_ls():

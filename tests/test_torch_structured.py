@@ -44,6 +44,7 @@ from socp_tpu_torch.kkt.dense import _dot, _mtv, _mv
 from socp_tpu_torch.models.random_socp import random_socp
 from socp_tpu_torch.problem import ConeDims
 from tests.test_dd_cones import _interior
+from tests._host_memory import release_host_memory  # noqa: F401
 
 N = 8
 
