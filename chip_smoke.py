@@ -113,6 +113,29 @@ Phases, each printing one JSON line to stdout:
               card against the port's CPU path (status, iterations, pcost
               1e-9, x 1e-7).  Then a profile of one steady solve of (a)
               ("hugecone").
+  7f. multidevice  the sharded entry points over torch.distributed
+              (socp_tpu_torch/parallel/: runtime, mesh, collectives,
+              batch): (a) a world of one rank on NCCL, at the full
+              contracts, config 3 through solve_batch_sharded (B = 4096),
+              config 4 through solve_block(mesh=) (K = 10,240), config 5
+              through admm_consensus(mesh=) (S = 65,536, one batch,
+              MD_ROUNDS5 rounds, dd32) and the huge cone's run (b)
+              through solve_huge(mesh=), each bit-equal to the same call
+              with mesh=None on the card, its collectives counted (each a
+              NCCL call; none staged) and its launches read; a profile of
+              config 4's sharded solve ("config4_mesh1", NCCL kernels as
+              category "nccl"); (b) two spawned ranks sharing the card over
+              gloo (NCCL refuses two ranks of one communicator on one GPU:
+              "Duplicate GPU detected"; gloo's collectives stage through
+              the host, counted as "staged"), config 4 and the huge cone
+              at full size, config 3 at B3_TWO instances and config 5 at
+              S5_TWO scenarios on the 2-D pod mesh; the two ranks' results
+              bit-identical, and each held to the one-device run: the same
+              status and iterations (rounds, rho), pcost within 1e-9
+              relative, x, y, z (w_bar) within 1e-7, except config 4's x,
+              which its solve does not fix to 1e-7 (md_held) and which is
+              reported.  Seconds of each run with nvidia-smi's line beside;
+              every rank killed at a failure or at MD_TIMEOUT_S.
   8. f32_kernels  the f32 instances of the four kernels (the factor of the
               mixed-precision mode, factor_dtype="float32") against their
               plain versions, bit for bit, on f32 SPD batches with kappa =
@@ -141,8 +164,9 @@ Phases, each printing one JSON line to stdout:
               Cholesky at n = 128, runs the f32 single kernel.
 Then a {"kernels": [...]} line, one row per TPU kernel (11): the f64
 batched kernels at config 3's shapes, with their launches in phase 5 (each
-f64 row also has "launches_by_path": phases 5, 5n, 7, 7n, 7b, 7c and
-7d and 7e, and "by_shape": its numbers at config 4's and config 5's
+f64 row also has "launches_by_path": phases 5, 5n, 7, 7n, 7b, 7c, 7d,
+7e and 7f (multidevice_<run> for (a), multidevice_2ranks_<run> for (b)'s
+rank 0), and "by_shape": its numbers at config 4's and config 5's
 shapes, and for the single ones at the single path's and the huge cone's); the
 f64 single-instance ones at n = 500, k = 1 with the path's other shapes
 beside, with their launches in phase 7's default run of config 2 and, per
@@ -189,6 +213,10 @@ REF5 = {"rounds": 10, "rho": 1.0, "pres": 0.010473211701971484,
 # SOC's q in the card's check against the CPU.
 Q_HUGE, N_HUGE, L_HUGE = (1 << 20) + 1, 64, 16
 QS_HUGE, P_HUGE, Q_HUGE_SMALL = ((1 << 19) + 1, (1 << 19) + 1), 4, (1 << 16) + 1
+# the multidevice phase: ADMM's rounds in it, run (b)'s depth for configs
+# 3 and 5 (instances, scenarios), and (b)'s deadline (and its ranks'
+# collective timeout), after which every rank is killed
+MD_ROUNDS5, B3_TWO, S5_TWO, MD_TIMEOUT_S = 2, 512, 4096, 420
 HBM_BYTES_PER_S = 3.35e12           # H100 SXM data sheet
 FP64_FLOPS_PER_S = 67e12            # H100 SXM data sheet, FP64 tensor core (the
                                     # card's fastest FP64 rate: a lower bound)
@@ -405,12 +433,17 @@ def none_of(launches, names, what):
           f"{what}: launched kernels of another path: {launches}")
 
 
-def phase_device():
-    name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
+def nvidia_smi():
+    """The card's "name, power.limit" as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    name = torch.cuda.get_device_name(0)
+    smi = nvidia_smi()
     print(smi, flush=True)
     emit({"phase": "device", "name": name, "nvidia_smi": smi,
           "count": torch.cuda.device_count(), "torch": torch.__version__,
@@ -737,7 +770,8 @@ def phase_main(native_dd=False):
 
 def _category(name):
     low = name.lower()
-    for key, cat in (("chol_batched_kernel", "chol_batched"),
+    for key, cat in (("nccl", "nccl"),      # ncclDevKernel_AllReduce_...
+                     ("chol_batched_kernel", "chol_batched"),
                      ("tri_pair_batched_kernel", "tri_pair_batched"),
                      ("chol_single_", "chol_single"),
                      ("tri_pair_single_kernel", "tri_pair_single"),
@@ -1496,6 +1530,312 @@ def phase_hugecone():
     return launches, profile_run
 
 
+# ---- multidevice: the sharded entry points over torch.distributed ----------
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def md_cases(small):
+    """The multidevice phase's runs: name -> (make the data, solve it with
+    `mesh` (None: the one-device path), the mesh for a world of n).  Config
+    3 through parallel.batch.solve_batch_sharded, config 4 through
+    solve_block, config 5 through admm_consensus (one batch, MD_ROUNDS5
+    rounds, bench_all's dd32 config) and the huge cone (b) through
+    solve_huge.  `small`: configs 3 and 5 at run (b)'s depth (B3_TWO
+    instances, S5_TWO scenarios)."""
+    from socp_tpu_torch import SolverConfig
+    from socp_tpu_torch.models.robust_ls import robust_ls_batch
+    from socp_tpu_torch.models.stochastic import scenario_portfolio
+    from socp_tpu_torch.parallel.admm import admm_consensus
+    from socp_tpu_torch.parallel.batch import solve_batch_sharded
+    from socp_tpu_torch.parallel.hugecone import solve_huge
+    from socp_tpu_torch.parallel.mesh import batch_mesh, block_mesh
+    from socp_tpu_torch.parallel.runtime import pod_mesh
+    from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
+    from socp_tpu_torch.problem import ConeDims
+
+    dd32 = SolverConfig(factor_dtype="dd32")
+    B3 = B3_TWO if small else B_MAIN
+    S5_ = S5_TWO if small else S5
+
+    def config5(data, mesh):
+        c, G, h, dims, A, b, info = data
+        return admm_consensus(c, G, h, dims, info["n"], A=A, b=b, rho=1.0,
+                              outer_iters=MD_ROUNDS5, tol=0.0, config=dd32,
+                              device="cuda", mesh=mesh)
+
+    return {
+        "config3": (lambda: robust_ls_batch(SEED, batch=B3, n=N_MAIN),
+                    lambda d, mesh: solve_batch_sharded(*d, mesh=mesh,
+                                                        device="cuda"),
+                    batch_mesh),
+        "config4": (lambda: random_block_problem(
+                        SEED, K=K4, nb=NB4, p=P4,
+                        block_dims=ConeDims(l=4, qs=(6,)))[0],
+                    lambda prob, mesh: solve_block(prob, config=dd32,
+                                                   device="cuda", mesh=mesh),
+                    block_mesh),
+        "config5": (lambda: scenario_portfolio(SEED, n=N5, n_scenarios=S5_),
+                    config5,
+                    # two ranks: the 2-D pod mesh, a scenario row each
+                    lambda n: batch_mesh(n) if n == 1
+                    else pod_mesh(scenario_size=n)),
+        "hugecone_b": (lambda: multi_soc(3, N_HUGE, L_HUGE, QS_HUGE, P_HUGE),
+                       lambda d, mesh: solve_huge(*d, device="cuda",
+                                                  mesh=mesh),
+                       block_mesh),
+    }
+
+
+def md_outputs(res):
+    """A run's outputs as a flat list, for the bitwise comparisons."""
+    if hasattr(res, "w_bar"):                        # an ADMMResult
+        return [res.w_bar, res.x, res.objective, res.primal_res,
+                res.dual_res, res.outer_iterations, res.inner_status_ok,
+                res.rho]
+    return [np.asarray(v) for v in res]
+
+
+def md_equal(a, b):
+    return len(a) == len(b) and all(np.array_equal(u, v)
+                                    for u, v in zip(a, b))
+
+
+def md_held(name, res, ref):
+    """Run (b) against the one-device run: the same status and iterations
+    (rounds, rho and the inner status for ADMM), pcost (the objective)
+    within 1e-9 relative, x (and w_bar, y, z) within 1e-7.  Config 4's x
+    is reported, not held: its solve does not fix it to 1e-7, since some
+    blocks' G_i are near singular (sigma_min down to 1.4e-6 at K = 10,240)
+    and x_i = G_i^-1 (h_i - s_i) carries s's last digits (one rank against
+    two on the CPU: x 0.038 apart, s 3.6e-5, z 3.6e-12, y 2.2e-16, pcost
+    5e-14).  Returns the gaps."""
+    def gap(a, b):
+        a, b = np.asarray(a), np.asarray(b)
+        return float(np.abs(a - b).max()) if a.size else 0.0
+
+    if hasattr(res, "w_bar"):
+        check((res.outer_iterations, res.rho, res.inner_status_ok)
+              == (ref.outer_iterations, ref.rho, ref.inner_status_ok)
+              and res.inner_status_ok,
+              f"multidevice {name}: rounds, rho or inner status differ")
+        gaps = {"objective_rel": abs(res.objective - ref.objective)
+                / max(1.0, abs(ref.objective)),
+                "x_max_abs": gap(res.x, ref.x),
+                "w_bar_max_abs": gap(res.w_bar, ref.w_bar)}
+    else:
+        x, status, k, stats = res[0], res[4], res[5], np.asarray(res[6])
+        rstats = np.asarray(ref[6])
+        check(np.array_equal(status, ref[4]) and np.array_equal(k, ref[5]),
+              f"multidevice {name}: status or iterations differ")
+        pc = np.abs(stats[..., 0] - rstats[..., 0]) / np.maximum(
+            1.0, np.abs(rstats[..., 0]))
+        gaps = {"pcost_rel": float(np.max(pc)), "x_max_abs": gap(x, ref[0]),
+                "y_max_abs": gap(res[1], ref[1]),
+                "s_max_abs": gap(res[2], ref[2]),
+                "z_max_abs": gap(res[3], ref[3])}
+    held = {key: v for key, v in gaps.items()
+            if not (name == "config4" and key in ("x_max_abs", "s_max_abs"))
+            and key != "s_max_abs"}
+    check(max(v for key, v in held.items() if key.endswith("_rel")) <= 1e-9
+          and max(v for key, v in held.items() if key.endswith("_abs")) <= 1e-7,
+          f"multidevice {name}: two ranks against one: {gaps}")
+    return gaps
+
+
+def md_rank(rank, world, port, outdir):
+    """Run (b)'s rank: a gloo group on the card (NCCL refuses two ranks of
+    one communicator on one GPU), each sharded run with its collectives,
+    launches and seconds; the results pickled to outdir (or the
+    traceback, and exit code 1)."""
+    import datetime
+    import os
+    import pickle
+    import traceback
+
+    import torch.distributed as dist
+
+    from socp_tpu_torch.parallel import collectives as coll
+    from socp_tpu_torch.parallel.runtime import init_distributed
+
+    try:
+        init_distributed(rank, world, f"tcp://127.0.0.1:{port}",
+                         device="cuda:0", backend="gloo",
+                         timeout=datetime.timedelta(seconds=MD_TIMEOUT_S))
+        out = {"backend": dist.get_backend()}
+        for name, (make, solve, mesh_of) in md_cases(small=True).items():
+            data = make()
+            mesh = mesh_of(world)
+            torch.cuda.synchronize()
+            coll.reset_counts()
+            reset_counts()
+            t0 = time.perf_counter()
+            res = solve(data, mesh)
+            out[name] = {"res": res, "s": time.perf_counter() - t0,
+                         "collectives": coll.counts(),
+                         "launches": read_counts()}
+            del data
+        value = (True, out)
+    except Exception:
+        value = (False, traceback.format_exc())
+    with open(os.path.join(outdir, f"rank{rank}.tmp"), "wb") as f:
+        pickle.dump(value, f)
+    os.replace(os.path.join(outdir, f"rank{rank}.tmp"),
+               os.path.join(outdir, f"rank{rank}.pkl"))
+    if value[0]:
+        dist.destroy_process_group()
+    sys.exit(0 if value[0] else 1)
+
+
+def md_two_ranks():
+    """Run (b): two spawned ranks on the one card; every rank killed at the
+    first failure or at the deadline.  Returns each rank's results."""
+    import multiprocessing
+    import os
+    import pickle
+    import tempfile
+
+    ctx = multiprocessing.get_context("spawn")
+    port = free_port()
+    with tempfile.TemporaryDirectory() as d:
+        procs = [ctx.Process(target=md_rank, args=(r, 2, port, d))
+                 for r in range(2)]
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MD_TIMEOUT_S
+        try:
+            while any(p.exitcode is None for p in procs):
+                if (any(p.exitcode not in (None, 0) for p in procs)
+                        or time.monotonic() > deadline):
+                    break
+                time.sleep(0.1)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(30)
+        ranks = []
+        for r, p in enumerate(procs):
+            path = os.path.join(d, f"rank{r}.pkl")
+            check(os.path.exists(path),
+                  f"multidevice (b): rank {r} ended with exit code "
+                  f"{p.exitcode} and no result (deadline {MD_TIMEOUT_S} s)")
+            with open(path, "rb") as f:          # written by md_rank
+                ok, value = pickle.load(f)
+            check(ok, f"multidevice (b): rank {r} failed:\n{value}")
+            ranks.append(value)
+    return ranks
+
+
+def phase_multidevice():
+    """The sharded entry points over torch.distributed (module doc, phase
+    7f).  (a) a world of one rank on NCCL at the full contracts, each run
+    bit-equal to mesh=None, with its collectives counted (every one a NCCL
+    call) and a profile of config 4's; (b) two ranks on the one card over
+    gloo, against the one-device runs, the ranks bit-identical.  Returns
+    the launches of each run, (a)'s and rank 0's of (b)."""
+    import torch.distributed as dist
+
+    from socp_tpu_torch.parallel import collectives as coll
+    from socp_tpu_torch.parallel.runtime import init_distributed
+
+    t_phase = time.perf_counter()
+    init_distributed(0, 1, f"tcp://127.0.0.1:{free_port()}", device="cuda:0")
+    check(dist.get_backend() == "nccl",
+          f"multidevice (a): backend {dist.get_backend()}")
+    launches, alone_small, rows = {}, {}, []
+    profile_run = None
+    for name, (make, solve, mesh_of) in md_cases(small=False).items():
+        t0 = time.perf_counter()
+        data = make()
+        setup_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        alone = solve(data, None)
+        alone_s = time.perf_counter() - t0
+        mesh = mesh_of(1)
+        torch.cuda.synchronize()
+        coll.reset_counts()
+        reset_counts()
+        t0 = time.perf_counter()
+        meshed = solve(data, mesh)
+        meshed_s = time.perf_counter() - t0
+        counts, kernels = coll.counts(), read_counts()
+        check(md_equal(md_outputs(alone), md_outputs(meshed)),
+              f"multidevice (a) {name}: mesh of one rank not bit-equal to "
+              "mesh=None")
+        check(sum(counts.values()) > 0 and counts["staged"] == 0,
+              f"multidevice (a) {name}: collectives {counts}")
+        path = ("chol_single", "tri_pair_single") if name == "hugecone_b" \
+            else ("chol_batched", "tri_pair_batched")
+        check(all(kernels[k] > 0 for k in path),
+              f"multidevice (a) {name}: launches {kernels}")
+        launches[f"multidevice_{name}"] = kernels
+        smi = nvidia_smi()
+        print(f"chip_smoke: multidevice (a) {name}: one NCCL rank bit-equal "
+              f"to mesh=None; {meshed_s!r} s meshed, {alone_s!r} s alone "
+              f"[{smi}]; collectives {counts}", flush=True)
+        rows.append({"phase": "multidevice", "run": "a", "case": name,
+                     "world_size": 1, "backend": "nccl", "bit_equal": True,
+                     "setup_s": setup_s, "meshed_s": meshed_s,
+                     "alone_s": alone_s, "nvidia_smi": smi,
+                     "collectives": counts, "launches": kernels})
+        if name == "config4":
+            profile_run = (lambda d=data, m=mesh, f=solve: f(d, m), meshed_s)
+        del data, alone, meshed
+    # (b)'s one-device references at its depth: configs 3 and 5 smaller
+    for name, (make, solve, _) in md_cases(small=True).items():
+        if name in ("config3", "config5"):
+            alone_small[name] = solve(make(), None)
+    phase_profile(profile_run[0], profile_run[1], "config4_mesh1")
+    del profile_run
+    dist.destroy_process_group()
+
+    # (b): two ranks on the one card, against the one-device runs
+    t0 = time.perf_counter()
+    ranks = md_two_ranks()
+    two_s = time.perf_counter() - t0
+    check(all(r["backend"] == "gloo" for r in ranks),
+          f"multidevice (b): backends {[r['backend'] for r in ranks]}")
+    full = md_cases(small=False)
+    for name in full:
+        res0 = ranks[0][name]["res"]
+        check(md_equal(md_outputs(res0), md_outputs(ranks[1][name]["res"])),
+              f"multidevice (b) {name}: the two ranks' results differ")
+        if name in alone_small:
+            ref = alone_small[name]
+        else:
+            make, solve, _ = full[name]
+            ref = solve(make(), None)
+        gaps = md_held(name, res0, ref)
+        counts = ranks[0][name]["collectives"]
+        check(counts["staged"] > 0,
+              f"multidevice (b) {name}: collectives {counts}")
+        launches[f"multidevice_2ranks_{name}"] = ranks[0][name]["launches"]
+        smi = nvidia_smi()
+        print(f"chip_smoke: multidevice (b) {name}: 2 ranks on gloo, "
+              f"{ranks[0][name]['s']!r} / {ranks[1][name]['s']!r} s "
+              f"[{smi}]; against one device {gaps}; collectives {counts}",
+              flush=True)
+        rows.append({"phase": "multidevice", "run": "b", "case": name,
+                     "world_size": 2, "backend": "gloo",
+                     "depth": ({"B": B3_TWO} if name == "config3" else
+                               {"S": S5_TWO} if name == "config5" else "full"),
+                     "ranks_bit_identical": True, "against_one_device": gaps,
+                     "s_by_rank": [r[name]["s"] for r in ranks],
+                     "nvidia_smi": smi, "collectives": counts,
+                     "launches": ranks[0][name]["launches"]})
+    for row in rows:
+        emit(row)
+    emit({"phase": "multidevice", "two_ranks_s": two_s,
+          "phase_s": time.perf_counter() - t_phase})
+    return launches
+
+
 def f32_spd(rng, B, n, neg=False):
     return torch.as_tensor(spd_batch(rng, B, n, kappa=1e4, neg=neg),
                            dtype=torch.float32, device="cuda")
@@ -1875,6 +2215,7 @@ def main():
     h_launches, (h_run, h_solve_s) = phase_hugecone()
     phase_profile(h_run, h_solve_s, "hugecone")
     del h_run
+    md_launches = phase_multidevice()
     f_errs, f_timing = phase_f32_kernels()
     f_launches, f_fn, f_args, f_solve_s = phase_f32factor()
     phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
@@ -1919,7 +2260,8 @@ def main():
                    "admm_chunked": a_launches["a"][name],
                    "admm_native": a_launches["c"][name],
                    **{"hugecone" if run == "a" else f"hugecone_{run}": v[name]
-                      for run, v in h_launches.items()}}
+                      for run, v in h_launches.items()},
+                   **{run: v[name] for run, v in md_launches.items()}}
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                "launches_by_path": by_path,

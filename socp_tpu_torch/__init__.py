@@ -11,8 +11,12 @@ block-structured SOCP (per-block factors and the Schur complement of the
 coupling rows) on one device.  `parallel.admm.admm_consensus` runs
 consensus ADMM over a batch of scenario SOCPs (the inner solves are the
 batched lockstep IPM; `models.stochastic` builds the two-stage portfolio
-of BASELINE config 5, `utils.checkpoint` its snapshots).  Entry points run
-on the card unless the caller passes `device="cpu"`.
+of BASELINE config 5, `utils.checkpoint` its snapshots).
+`parallel.hugecone` solves one SOCP with a cone of millions of rows.
+Each of them, and `parallel.batch.solve_batch_sharded`, takes `mesh=` to
+shard its work over the ranks of `torch.distributed` (`parallel.runtime`,
+`parallel.mesh`).  Entry points run on the card unless the caller passes
+`device="cpu"`.
 """
 
 from socp_tpu_torch.api import (prepare_batch, solve, solve_batch,

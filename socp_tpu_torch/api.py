@@ -165,7 +165,7 @@ def solve(
 def prepare_batch(
     c, G, h, dims: ConeDims, A=None, b=None, P=None,
     config: SolverConfig = DEFAULT_CONFIG, dtype=None,
-    has_warm: bool = False, device=None,
+    has_warm: bool = False, device=None, group=None,
 ):
     """Device-resident batched solve: returns `(fn, args, layout)` with all
     problem data padded and placed on the device once; `fn(*args)` runs the
@@ -173,7 +173,11 @@ def prepare_batch(
 
     `has_warm=True`: `fn(*args, warm)` takes a (x, y, s, z) tuple of
     per-instance PADDED warm starts (e.g. the raw outputs of a previous
-    `fn(*args)`, or `carry.from_reference_warm`)."""
+    `fn(*args)`, or `carry.from_reference_warm`).
+
+    `group`: the process group of a batch sharded over ranks, each rank
+    preparing its own slice (parallel/batch.py); the lockstep loop runs
+    while any rank has an active instance (ipm/driver.py)."""
     dev = resolve_device(device)
     resolve_dtype(dtype)
     B, n = np.shape(c)
@@ -205,7 +209,7 @@ def prepare_batch(
         if (warm is not None) != has_warm:
             raise TypeError("fn takes a warm tuple iff prepared with has_warm=True")
         return driver.solve_core(layout, config, c, G, h, A, b, P,
-                                 has_P=has_P, warm=warm)
+                                 has_P=has_P, warm=warm, group=group)
 
     return fn, args, layout
 

@@ -25,8 +25,10 @@ triangular-pair kernels or their f32 instances (single-instance for
 
 Any other `factor_dtype` raises in `api`.  The block-Schur solve
 (parallel/schur.py) resolves the fields as the reference's block path
-does: it factors in f64 whatever `factor_dtype` says, ignores
-`native_dd`, and on its one device `ring_schur` changes nothing.
+does: it factors in f64 whatever `factor_dtype` says and ignores
+`native_dd`; `ring_schur` reduces its Schur complement by
+`collectives.ring_allreduce` when its blocks are sharded over a mesh, and
+changes nothing on one device.
 """
 
 from __future__ import annotations

@@ -42,6 +42,7 @@ from socp_tpu_torch.cones.layout import ConeLayout
 from socp_tpu_torch.config import SolverConfig
 from socp_tpu_torch.kkt import dense, structured
 from socp_tpu_torch.kkt.dense import _dot, _mtv, _mv
+from socp_tpu_torch.parallel import collectives
 from socp_tpu_torch.solution import Status
 
 # SolverConfig.factor_dtype -> the dtype of the KKT factor and back-solves.
@@ -91,11 +92,18 @@ def solve_core(
     P: torch.Tensor,        # (B, n, n); ignored unless has_P
     has_P: bool = False,
     warm: tuple | None = None,
+    group=None,
 ):
     """Solve B padded SOCPs in lockstep.  All tensors on one device, f64.
 
     `warm`: optional (x, y, s, z) per-instance padded start — skips the W = I
     init solves and recenters s, z by cfg.warm_push.
+
+    `group`: the process group whose ranks hold the other slices of a
+    sharded batch (parallel/batch.py).  The loop then runs while any
+    instance of any rank is active: the condition is reduced over the
+    ranks (`collectives.pany`) before the loop's one host read, as the
+    reference's sharded while-loop reduces its predicate.
 
     Returns (x, y, s, z, status, iterations, stats, hist) with stats (B, 7)
     = [pcost, dcost, gap, relgap, pres, dres, inaccurate_flag].
@@ -342,7 +350,7 @@ def solve_core(
     # the vmapped while-loop, written out (module doc)
     while True:
         active = ~st.done & (st.k < cfg.max_iter)
-        if not bool(active.any()):
+        if not bool(collectives.pany(active.any(), group)):
             break
         new = body(st)
         st = IPMState(*(_where(active, a, o) for a, o in zip(new, st)))

@@ -1,4 +1,5 @@
-"""Consensus ADMM over scenario subproblems, on one device: the port of
+"""Consensus ADMM over scenario subproblems, on one device or with the
+scenarios sharded over the ranks of a mesh: the port of
 `socp_tpu/parallel/admm.py` (BASELINE config 5).
 
 Two-stage stochastic programs decompose into S scenario SOCPs coupled only
@@ -38,14 +39,28 @@ Launches: each inner IPM iteration with p = 1 makes 2 chol_batched (H at
 n = nv and the 1 x 1 A-Schur complement) and 10 tri_pair_batched; a cold
 solve's W = I initialization adds 2 + 13, a warm start skips it.
 
-There is no `mesh` argument: the sharded forms (1-D and the 2-D pod mesh)
-are not ported.  Config is resolved as `api._resolve_config` resolves it
-for the other entry points (Gondzio None -> 0; `factor_dtype="dd32"` is
-the f64 path; `native_dd=True` takes kkt/structured.py).
+`mesh`: a 1-D mesh or the 2-D `runtime.pod_mesh`.  The scenario batch is
+sharded over all of the mesh's dims, as the reference's `_mesh_specs`
+does (admm.py:161-174): rank r of the world holds the contiguous S / N
+scenarios at r, their data, u and warm iterates, and runs their inner
+solves (in chunks of scenario_chunk / N, so the chunk count is the one
+of the unsharded run).  The inner solves exchange nothing: each rank's
+lockstep loop ends with its own scenarios.  The consensus mean is one
+all-reduce over the whole world (the ranks' means weighted by their share
+of S), and the round's residual and all-OPTIMAL flag one more; w_bar,
+rho and every branch are then the same bits on every rank.  Each round's
+one device read, `_fetch`, comes after those reductions.
+
+Config is resolved as `api._resolve_config` resolves it for the other
+entry points (Gondzio None -> 0; `factor_dtype="dd32"` is the f64 path;
+`native_dd=True` takes kkt/structured.py).
 
 Checkpoint/resume: `checkpoint_every` snapshots (w_bar, u, rho, round and
 the warm iterates) in the reference's npz format (utils/checkpoint.py);
 `resume_from` restarts a run from such a snapshot, the reference's too.
+On a mesh the snapshot is the whole run's, gathered from the ranks and
+written by rank 0, and a resume reads the whole file on every rank and
+takes the rank's scenarios: a snapshot resumes on any rank count.
 """
 
 from __future__ import annotations
@@ -61,6 +76,8 @@ from socp_tpu_torch.api import _put, _resolve_config, resolve_device, resolve_dt
 from socp_tpu_torch.cones.layout import ConeLayout, make_layout
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from socp_tpu_torch.ipm import driver
+from socp_tpu_torch.parallel import collectives as coll
+from socp_tpu_torch.parallel.mesh import mesh_group, shard_index
 from socp_tpu_torch.problem import ConeDims
 from socp_tpu_torch.solution import Status
 from socp_tpu_torch.utils.checkpoint import SolverCheckpoint
@@ -96,15 +113,28 @@ def _inner(layout: ConeLayout, config: SolverConfig, c, G, h, A, b, E,
     return out[0], torch.all(out[4] == int(Status.OPTIMAL)), out[:4]
 
 
-def _consensus(xc, u, w_bar, rho_d, alpha: float):
+def _consensus(xc, u, w_bar, rho_d, alpha: float, ok, group=None,
+               share: float = 1.0):
     """Over-relaxed consensus mean and dual update over all S scenarios,
-    with the primal and dual residuals (0-d tensors)."""
+    with the primal and dual residuals (0-d tensors) and whether every
+    inner solve of the round ended OPTIMAL.  With `group`, xc, u and `ok`
+    are this rank's (its `share` of the S scenarios): the mean and the
+    residual's mean are the ranks' means weighted by their shares, summed
+    over the group (for one rank, the local mean times 1.0: the same bits
+    as without a group)."""
     xh = alpha * xc + (1.0 - alpha) * w_bar[None, :]
     w_new = torch.mean(xh + u, dim=0)
+    if group is not None:
+        w_new = coll.psum(w_new * share, group)
     u_new = u + xh - w_new[None, :]
-    pres = torch.sqrt(torch.mean(torch.sum((xc - w_new[None, :]) ** 2, dim=1)))
+    msq = torch.mean(torch.sum((xc - w_new[None, :]) ** 2, dim=1))
+    if group is not None:
+        msq, failed = coll.psum(torch.stack([msq * share,
+                                             (~ok).to(msq.dtype)]), group)
+        ok = failed == 0
+    pres = torch.sqrt(msq)
     dres = rho_d * torch.linalg.vector_norm(w_new - w_bar)
-    return w_new, u_new, pres, dres
+    return w_new, u_new, pres, dres, ok
 
 
 def _fetch(pres, dres, ok) -> tuple[float, float, bool]:
@@ -136,6 +166,7 @@ def admm_consensus(
     scenario_chunk: Optional[int] = None,
     device=None,
     dtype=None,
+    mesh=None,
 ) -> ADMMResult:
     """Run consensus ADMM; the inner solves are the batched lockstep IPM.
 
@@ -149,6 +180,11 @@ def admm_consensus(
     (the consensus and dual update stay one pass over all S).  It bounds
     the device memory the solves hold at once.  Warm starts, adaptive rho
     and checkpoint/resume work per chunk.
+
+    `mesh`: shard the scenarios over the ranks of a 1-D mesh or of the 2-D
+    `runtime.pod_mesh` (module doc); S and scenario_chunk must divide by
+    the world size.  Every rank passes the whole problem and gets the
+    whole result.
 
     `device=None` means "cuda" and raises without CUDA (`device="cpu"`
     runs the kernels' plain versions); `dtype` takes any spelling of f64
@@ -175,14 +211,27 @@ def admm_consensus(
             f"n_scenarios {S} not divisible by scenario_chunk {scenario_chunk}"
         )
     Sc = scenario_chunk if chunked else S
-    spans = [slice(i, i + Sc) for i in range(0, S, Sc)]
+    # this rank's scenarios (all of them without a mesh) and its chunks
+    group = None if mesh is None else mesh_group(mesh)
+    r, ndev = (0, 1) if group is None else shard_index(group)
+    if S % ndev or Sc % ndev:
+        raise ValueError(f"n_scenarios {S} and chunk {Sc} must divide by the "
+                         f"mesh size {ndev}")
+    Sl, Sc = S // ndev, Sc // ndev
+    own = slice(r * Sl, (r + 1) * Sl)
+    spans = [slice(i, i + Sc) for i in range(0, Sl, Sc)]
+
+    def whole(t):
+        """Every rank's rows of a (Sl, ...) tensor, in scenario order."""
+        return t if group is None else coll.all_gather(t, group).flatten(0, 1)
 
     # ---- problem data on the device once, one copy per chunk (never the
     # whole (S, m, n) array beside its slices)
-    Gp = layout.pad_rows(np.asarray(G, np.float64))
-    hp = layout.pad_vec(np.asarray(h, np.float64))
-    chunks = [tuple(_put(a[sl], dev) for a in (c, Gp, hp))
-              + ((_put(A[sl], dev), _put(b[sl], dev)) if batch_A
+    Gp = layout.pad_rows(np.asarray(G[own], np.float64))
+    hp = layout.pad_vec(np.asarray(h[own], np.float64))
+    c_own = c[own]
+    chunks = [tuple(_put(a[sl], dev) for a in (c_own, Gp, hp))
+              + ((_put(A[own][sl], dev), _put(b[own][sl], dev)) if batch_A
                  else (_put(A, dev), _put(b, dev)))
               for sl in spans]
     E = _put((np.arange(n) < nc).astype(np.float64), dev)
@@ -194,7 +243,7 @@ def admm_consensus(
         ck = (SolverCheckpoint.load(resume_from)
               if isinstance(resume_from, str) else resume_from)
         w_bar = _put(ck.x, dev)
-        u = _put(ck.y, dev)
+        u = _put(ck.y[own], dev)
         rho = float(ck.meta.get("rho", rho))
         it0 = int(ck.iteration)
         if it0 >= outer_iters:
@@ -203,11 +252,11 @@ def admm_consensus(
                 " — nothing to resume; raise outer_iters or start fresh"
             )
         if warm_start and "warm_x" in ck.meta:
-            warm = [tuple(_put(ck.meta[k][sl], dev) for k in _WARM_KEYS)
+            warm = [tuple(_put(ck.meta[k][own][sl], dev) for k in _WARM_KEYS)
                     for sl in spans]
     else:
         w_bar = torch.zeros(nc, dtype=torch.float64, device=dev)
-        u = torch.zeros((S, nc), dtype=torch.float64, device=dev)
+        u = torch.zeros((Sl, nc), dtype=torch.float64, device=dev)
 
     pres = dres = np.inf
     ok = True
@@ -224,12 +273,14 @@ def admm_consensus(
             oks.append(ok_i)
             warm_next.append(wn)
         xc = torch.cat([x_[:, :nc] for x_ in xs])
-        w_bar, u, pres_d, dres_d = _consensus(xc, u, w_bar, rho_d, alpha)
+        w_bar, u, pres_d, dres_d, ok_d = _consensus(
+            xc, u, w_bar, rho_d, alpha, torch.stack(oks).all(), group,
+            Sl / S)
         if warm_start:
             warm = warm_next
         # ok accumulates: one failed inner solve anywhere in the trajectory
         # taints the run (a later clean round must not mask it)
-        pres, dres, ok_round = _fetch(pres_d, dres_d, torch.stack(oks).all())
+        pres, dres, ok_round = _fetch(pres_d, dres_d, ok_d)
         ok = ok and ok_round
         if verbose:
             print(f"admm {it:3d} pres={pres:.3e} dres={dres:.3e} "
@@ -249,17 +300,21 @@ def admm_consensus(
         if checkpoint_every and (it + 1) % checkpoint_every == 0:
             meta = {"rho": rho, "pres": pres, "dres": dres}
             if warm_start and warm is not None:
-                meta.update({k: torch.cat([w[j] for w in warm]).cpu().numpy()
-                             for j, k in enumerate(_WARM_KEYS)})
-            SolverCheckpoint(
-                x=w_bar.cpu().numpy(), y=u.cpu().numpy(),
-                s=np.zeros(0), z=np.zeros(0), iteration=it + 1, meta=meta,
-            ).save(checkpoint_path)
+                meta.update({k: whole(torch.cat([w[j] for w in warm]))
+                             .cpu().numpy() for j, k in enumerate(_WARM_KEYS)})
+            u_all = whole(u).cpu().numpy()
+            if r == 0:
+                SolverCheckpoint(
+                    x=w_bar.cpu().numpy(), y=u_all,
+                    s=np.zeros(0), z=np.zeros(0), iteration=it + 1, meta=meta,
+                ).save(checkpoint_path)
+            if group is not None:      # no rank goes on before the file is
+                coll.psum(w_bar.new_zeros(()), group).item()
         if converged:
             break
 
     x_np = (np.zeros((S, n)) if xs is None
-            else torch.cat(xs).cpu().numpy())
+            else whole(torch.cat(xs)).cpu().numpy())
     w_np = w_bar.cpu().numpy()
     x_cons = x_np.copy()
     x_cons[:, :nc] = w_np

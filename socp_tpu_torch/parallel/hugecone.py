@@ -1,13 +1,13 @@
-"""One SOCP whose cone vector has millions of rows, on one device: the port
-of `socp_tpu/parallel/hugecone.py` (SURVEY.md section 5, the long-context
+"""One SOCP whose cone vector has millions of rows, on one device or with
+the rows sharded over the ranks of a mesh: the port of
+`socp_tpu/parallel/hugecone.py` (SURVEY.md section 5, the long-context
 row).
 
     minimize c'x   s.t.  A x = b,  G x + s = h,   s in R+^l x Q^q1 x ... x Q^qN
 
-with l + sum(q_i) = m huge and n, p and N modest.  The reference shards
-the m rows over a mesh; here they live on one device, and the module keeps
-the reference's form so that a sharded port (ROADMAP queue 1 item 11) has
-one place to change:
+with l + sum(q_i) = m huge and n, p and N modest.  As in the reference,
+the m rows of G and every m-vector are split over the mesh's ranks while
+x, y, the SOC heads and the condensed n x n system are replicated:
 
   * every m-vector is an `HV(orth, head, tail)`: the orthant part (l,),
     the head u0 of each SOC (N,) and the SOC tails (N, t_max), each tail
@@ -21,8 +21,18 @@ one place to change:
     `tri_pair_single`; p coupling equalities ride a (p, p) Schur
     complement S = A H^-1 A' with its own factor;
   * the reference's device reductions (`dd_allsum`, `pmin`, `lax.psum`)
-    are the identity on one device: `_allsum`, `_pmin` and `_psum` below,
-    where a sharded form would put its `torch.distributed` collectives.
+    are parallel/collectives.py's `allsum` (gather, then the fixed-order
+    sum: the same bits on every rank), `pmin` and `psum` over the mesh's
+    group (`group` below), and the identity without a mesh.
+
+Sharding (`mesh=`, N ranks): the orthant rows and each SOC's tail rows
+are padded to a multiple of N, as the reference pads them
+(hugecone.py:813-823): orthant pads are rows G = 0, h = 1 (strictly
+feasible, so they only add N-1 or fewer coordinates of degree one), tail
+pads are zero; rank r holds the r-th contiguous N-th of the orthant rows
+and of every tail.  The replicated terms of the refinement norms are
+divided by N before the sum over the ranks, so they count once.  Without
+a mesh nothing is padded.
 
 Precision: the reference runs every carry, Gram and factor in double-word
 f32 (dd32) because the TPU has no fast f64; the card has native FP64, so
@@ -42,13 +52,15 @@ or 2 and 13 for p > 0 (S's factor, H^-1 A' at k = p, and 3 pair solves a
 back-solve); each Gondzio corrector adds one unrefined back-solve, 1 or 3.
 
 The loop reads the device once a body, in `_fetch` (its `done` flag and
-`k`, and the verbose row), which a test counts.  Config is resolved by
-`api._resolve_config`: `gondzio_correctors=None` is 0, where the reference
-took 1 on a TPU.  There is no `mesh` argument.
+`k`, and the verbose row), which a test counts; on a mesh the flag is
+already a replicated value, so the read needs no collective of its own.
+Config is resolved by `api._resolve_config`: `gondzio_correctors=None` is
+0, where the reference took 1 on a TPU.
 """
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional
 
@@ -58,9 +70,9 @@ import torch
 from socp_tpu_torch.api import _put, _resolve_config, resolve_device, resolve_dtype
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from socp_tpu_torch.kkt.dense import EqChol, _eq_chol
+from socp_tpu_torch.parallel import collectives as coll
+from socp_tpu_torch.parallel.mesh import mesh_group, shard_index
 from socp_tpu_torch.solution import Status
-
-NDEV = 1      # devices the rows are split over: the replicated terms' divisor
 
 
 class HV(NamedTuple):
@@ -80,27 +92,13 @@ def _col(x: torch.Tensor) -> torch.Tensor:
     return x[:, None]
 
 
-# ---- device reductions: the identity on one device -------------------
-def _allsum(v: torch.Tensor) -> torch.Tensor:
-    """Sum of the ranks' partials (the reference's in-order `dd_allsum`)."""
-    return v
-
-
-def _pmin(v: torch.Tensor) -> torch.Tensor:
-    """Least over the ranks (the reference's `lax.pmin`)."""
-    return v
-
-
-def _psum(v: torch.Tensor) -> torch.Tensor:
-    """Sum over the ranks (the reference's `lax.psum`)."""
-    return v
-
-
-def tdots(*pairs: tuple[HV, HV]) -> list[torch.Tensor]:
+# The functions below take `group`, the process group the rows are split
+# over (None: one device, every reduction the identity).
+def tdots(*pairs: tuple[HV, HV], group=None) -> list[torch.Tensor]:
     """Per-SOC tail dots u1'v1, each (N,), for several (u, v) pairs with
     one reduction: the partials are stacked, reduced, unstacked."""
-    red = _allsum(torch.stack([torch.sum(u.tail * v.tail, dim=1)
-                               for u, v in pairs]))
+    red = coll.allsum(torch.stack([torch.sum(u.tail * v.tail, dim=1)
+                                   for u, v in pairs]), group)
     return list(red.unbind(0))
 
 
@@ -122,16 +120,16 @@ def jdiv(lam: HV, d: HV, ltl: torch.Tensor, ltd: torch.Tensor) -> HV:
               (d.tail - _col(u0) * lam.tail) / _col(lam.head))
 
 
-def lambda_min(u: HV, utu: torch.Tensor) -> torch.Tensor:
+def lambda_min(u: HV, utu: torch.Tensor, group=None) -> torch.Tensor:
     """The least eigenvalue over all blocks (0-d)."""
     out = torch.amin(u.head - torch.sqrt(torch.clamp_min(utu, 0.0)))
     if u.orth.numel():
-        out = torch.minimum(out, _pmin(torch.amin(u.orth)))
+        out = torch.minimum(out, coll.pmin(torch.amin(u.orth), group))
     return out
 
 
 def max_step(u: HV, du: HV, utu: torch.Tensor, dtd: torch.Tensor,
-             utd: torch.Tensor) -> torch.Tensor:
+             utd: torch.Tensor, group=None) -> torch.Tensor:
     """sup{alpha >= 0 : u + alpha du in K} (0-d, inf if unbounded); tail
     dots pre-reduced.  SOC blocks: the smallest positive root of
     det(u + alpha du) = a alpha^2 + b alpha + c by the stable form
@@ -149,7 +147,7 @@ def max_step(u: HV, du: HV, utu: torch.Tensor, dtd: torch.Tensor,
     out = torch.amin(torch.where(valid, 2.0 * c / safe, math.inf))
     if u.orth.numel():
         cand = torch.where(du.orth < 0, -(u.orth / du.orth), math.inf)
-        out = torch.minimum(out, _pmin(torch.amin(cand)))
+        out = torch.minimum(out, coll.pmin(torch.amin(cand), group))
     return out
 
 
@@ -161,9 +159,9 @@ class HScal(NamedTuple):
     lam: HV                  # W z
 
 
-def nt_scale(s: HV, z: HV) -> HScal:
+def nt_scale(s: HV, z: HV, group=None) -> HScal:
     w_orth = torch.sqrt(s.orth / z.orth)
-    sts, ztz, stz = tdots((s, s), (z, z), (s, z))
+    sts, ztz, stz = tdots((s, s), (z, z), (s, z), group=group)
     dets = soc_det(s, sts)
     detz = soc_det(z, ztz)
     rs = torch.sqrt(dets)
@@ -179,7 +177,7 @@ def nt_scale(s: HV, z: HV) -> HScal:
     v = HV(w_orth, w0p / vden, wb_tail / _col(vden))
     eta = torch.sqrt(torch.sqrt(dets / detz))
     # lam = W z = eta (2 v (v'z) - J z)
-    (vtz,) = tdots((v, z))
+    (vtz,) = tdots((v, z), group=group)
     vz = v.head * z.head + vtz
     lam = HV(torch.sqrt(s.orth * z.orth),
              eta * (2.0 * v.head * vz - z.head),
@@ -187,17 +185,17 @@ def nt_scale(s: HV, z: HV) -> HScal:
     return HScal(w_orth=w_orth, eta=eta, v=v, lam=lam)
 
 
-def apply_W(sc: HScal, u: HV) -> HV:
-    (vtu,) = tdots((sc.v, u))
+def apply_W(sc: HScal, u: HV, group=None) -> HV:
+    (vtu,) = tdots((sc.v, u), group=group)
     vu = sc.v.head * u.head + vtu
     return HV(sc.w_orth * u.orth,
               sc.eta * (2.0 * sc.v.head * vu - u.head),
               _col(sc.eta) * (2.0 * sc.v.tail * _col(vu) + u.tail))
 
 
-def apply_Winv(sc: HScal, u: HV) -> HV:
+def apply_Winv(sc: HScal, u: HV, group=None) -> HV:
     # W^-1 = eta^-1 P(Jv): (Jv)'u = v0 u0 - v1'u1
-    (vtu,) = tdots((sc.v, u))
+    (vtu,) = tdots((sc.v, u), group=group)
     jvu = sc.v.head * u.head - vtu
     return HV(u.orth / sc.w_orth,
               (2.0 * sc.v.head * jvu - u.head) / sc.eta,
@@ -235,11 +233,25 @@ class _State(NamedTuple):
     hist: torch.Tensor       # (max_iter, 6) with collect_history, else (0, 6)
 
 
-def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
-    """The IPM on one device.  G_o: (l, n) orthant rows; G_H: (N, n) SOC
-    head rows; G_t: (N, t_max, n) SOC tail rows; h likewise.  Returns
-    (x, y, s.orth, s.head, s.tail, z.orth, z.head, z.tail, status, k,
-    stats, hist) as tensors."""
+def _core(cfg: SolverConfig, group, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
+    """The IPM on this rank's rows.  G_o: (l, n) orthant rows; G_H: (N, n)
+    SOC head rows (replicated); G_t: (N, t_max, n) SOC tail rows; h
+    likewise.  `group`: the process group the rows are split over (None:
+    one device).  Returns (x, y, s.orth, s.head, s.tail, z.orth, z.head,
+    z.tail, status, k, stats, hist) as tensors, the orthant and tail parts
+    this rank's."""
+    ndev = 1 if group is None else shard_index(group)[1]
+
+    def allsum(v):
+        return coll.allsum(v, group)
+
+    def psum(v):
+        return coll.psum(v, group)
+
+    dots, lmin, mstep, nt, W, Winv = (
+        functools.partial(f, group=group)
+        for f in (tdots, lambda_min, max_step, nt_scale, apply_W, apply_Winv))
+
     n = c.shape[0]
     l = G_o.shape[0]
     n_soc, t_max = h_t.shape
@@ -256,7 +268,7 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
         loc = torch.sum(u.tail * v.tail)
         if l:
             loc = loc + torch.dot(u.orth, v.orth)
-        return _allsum(loc) + torch.dot(u.head, v.head)
+        return allsum(loc) + torch.dot(u.head, v.head)
 
     def vnorm(u: HV) -> torch.Tensor:
         return torch.sqrt(torch.clamp_min(vdot(u, u), 0.0))
@@ -282,7 +294,7 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
     e = HV(ones(l), ones(n_soc), h_t.new_zeros((n_soc, t_max)))
     zero_hv = HV(h_o.new_zeros(l), h_H.new_zeros(n_soc),
                  h_t.new_zeros((n_soc, t_max)))
-    nu = float(l + n_soc)
+    nu = float(ndev * l + n_soc)          # the orthant pads count
 
     # ---- G products ----------------------------------------------------
     def G_mv(x) -> HV:
@@ -290,13 +302,13 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
 
     def GT_mv(u: HV):
         loc = G_tf.T @ u.tail.reshape(-1) + G_o.T @ u.orth
-        return _allsum(loc) + G_H.T @ u.head
+        return allsum(loc) + G_H.T @ u.head
 
     # ---- KKT: tall-skinny Gram, f64 Cholesky ----------------------------
     def scale_rows_Winv(sc: HScal):
         """Ghat = W^-1 G rowwise.  SOC rows need t = (Jv)'G per cone:
         v0 g0 - V1'G1, an (N, n) reduced tall matvec."""
-        vtG = _allsum(torch.bmm(sc.v.tail[:, None, :], G_t)[:, 0])
+        vtG = allsum(torch.bmm(sc.v.tail[:, None, :], G_t)[:, 0])
         t_vec = _col(sc.v.head) * G_H - vtG                     # (N, n)
         Gh_o = G_o / _col(sc.w_orth)
         Gh_H = (2.0 * _col(sc.v.head) * t_vec - G_H) / _col(sc.eta)
@@ -309,7 +321,7 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
         Gh_o, Gh_H, Gh_t = scale_rows_Winv(sc)
         Gh_tf = Gh_t.view(n_soc * t_max, n)
         H = torch.addmm(Gh_tf.T @ Gh_tf, Gh_o.T, Gh_o)          # local rows
-        H = torch.addmm(_allsum(H), Gh_H.T, Gh_H)               # replicated rows
+        H = torch.addmm(allsum(H), Gh_H.T, Gh_H)               # replicated rows
         L_H = _eq_chol(H[None], cfg.delta_reg)
         L_S = None
         if p:
@@ -323,11 +335,11 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
 
     def GhatT_mv(f: _Factored, u: HV):
         loc = f.Gh_tf.T @ u.tail.reshape(-1) + f.Gh_o.T @ u.orth
-        return _allsum(loc) + f.Gh_H.T @ u.head
+        return allsum(loc) + f.Gh_H.T @ u.head
 
     def kkt_solve_once(f: _Factored, bx, by, bz: HV):
         """Condensed solve + (p, p) Schur for the equalities."""
-        bhz = apply_Winv(f.scaling, bz)
+        bhz = Winv(f.scaling, bz)
         btx = bx + GhatT_mv(f, bhz)
         if p:
             t1 = f.L_H.solve(btx[None])[0]
@@ -336,7 +348,7 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
         else:
             dy = by
             dx = f.L_H.solve(btx[None])[0]
-        dz = apply_Winv(f.scaling, vsub(Ghat_mv(f, dx), bhz))
+        dz = Winv(f.scaling, vsub(Ghat_mv(f, dx), bhz))
         return dx, dy, dz
 
     def kkt_solve(f: _Factored, bx, by, bz: HV):
@@ -352,10 +364,10 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
             """The rows' part of the squared norm: orthant + tails."""
             return _sq(u.orth) + _sq(u.tail)
 
-        # replicated terms are divided by NDEV before the sum over the
-        # ranks, so they count once in the global norm
+        # replicated terms are divided by the rank count before the sum
+        # over the ranks, so they count once in the global norm
         rhs_norm = torch.sqrt(
-            _psum(_sq(bx) / NDEV + hnrm2(bz)) + _sq(bz.head) + _sq(by)) + 1.0
+            psum(_sq(bx) / ndev + hnrm2(bz)) + _sq(bz.head) + _sq(by)) + 1.0
         for _ in range(cfg.refine_steps):
             rx = bx - GT_mv(dz)
             if p:
@@ -363,10 +375,10 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
                 ry = by - A @ dx
             else:
                 ry = by
-            WWdz = apply_W(f.scaling, apply_W(f.scaling, dz))
+            WWdz = W(f.scaling, W(f.scaling, dz))
             rz = vsub(bz, vsub(G_mv(dx), WWdz))
             quality = torch.sqrt(
-                _psum(_sq(rx) / NDEV + hnrm2(rz)) + _sq(rz.head) + _sq(ry)
+                psum(_sq(rx) / ndev + hnrm2(rz)) + _sq(rz.head) + _sq(ry)
             ) / rhs_norm
             ex, ey, ez = kkt_solve_once(f, rx, ry, rz)
             dx, dy, dz = dx + ex, dy + ey, vadd(dz, ez)
@@ -390,12 +402,12 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
     f0 = factor(HScal(w_orth=ones(l), eta=ones(n_soc), v=e, lam=e))   # W = I
     x0, _, z0m, _ = kkt_solve(f0, c.new_zeros(n), b, h)
     shat = vneg(z0m)
-    (shat_tt,) = tdots((shat, shat))
-    ap = -lambda_min(shat, shat_tt)
+    (shat_tt,) = dots((shat, shat))
+    ap = -lmin(shat, shat_tt)
     s0 = hwhere(ap < 0, shat, axpy(shat, 1.0 + ap, e))
     _, y0, zhat, _ = kkt_solve(f0, -c, b.new_zeros(p), zero_hv)
-    (zhat_tt,) = tdots((zhat, zhat))
-    ad = -lambda_min(zhat, zhat_tt)
+    (zhat_tt,) = dots((zhat, zhat))
+    ad = -lmin(zhat, zhat_tt)
     z0 = hwhere(ad < 0, zhat, axpy(zhat, 1.0 + ad, e))
 
     def metrics(x, y, s, z, rx, ry, rz):
@@ -450,39 +462,39 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
 
         pinf, dinf = certificates(x, y, s, z, rx, ry, rz, cfg.feastol)
 
-        sc = nt_scale(s, z)
+        sc = nt(s, z)
         f = factor(sc)
         lam = sc.lam
-        (ltl,) = tdots((lam, lam))
+        (ltl,) = dots((lam, lam))
 
         def newton(d_s: HV, ltd):
             dtil = jdiv(lam, d_s, ltl, ltd)
-            rhs_z = vadd(vneg(rz), apply_W(sc, dtil))
+            rhs_z = vadd(vneg(rz), W(sc, dtil))
             dx, dy, dz, quality = kkt_solve(f, -rx, -ry, rhs_z)
-            dz_sc = apply_W(sc, dz)
+            dz_sc = W(sc, dz)
             ds_sc = vneg(vadd(dtil, dz_sc))
             return dx, dy, dz, ds_sc, dz_sc, quality
 
         def step(ds_sc: HV, dz_sc: HV):
-            """min(max_step(lam, ds_sc), max_step(lam, dz_sc))."""
-            ds_ds, dz_dz, l_ds, l_dz = tdots(
+            """min(mstep(lam, ds_sc), mstep(lam, dz_sc))."""
+            ds_ds, dz_dz, l_ds, l_dz = dots(
                 (ds_sc, ds_sc), (dz_sc, dz_sc), (lam, ds_sc), (lam, dz_sc))
-            return torch.minimum(max_step(lam, ds_sc, ltl, ds_ds, l_ds),
-                                 max_step(lam, dz_sc, ltl, dz_dz, l_dz))
+            return torch.minimum(mstep(lam, ds_sc, ltl, ds_ds, l_ds),
+                                 mstep(lam, dz_sc, ltl, dz_dz, l_dz))
 
         lam2 = jprod(lam, lam, ltl)
-        (ltl2,) = tdots((lam, lam2))
+        (ltl2,) = dots((lam, lam2))
         _, _, _, ds_sc_a, dz_sc_a, _ = newton(lam2, ltl2)
         alpha_a = torch.clamp_max(step(ds_sc_a, dz_sc_a), 1.0)
         gap_a = vdot(axpy(lam, alpha_a, ds_sc_a), axpy(lam, alpha_a, dz_sc_a))
         sigma = torch.clamp(gap_a / gap, 0.0, 1.0) ** 3
 
-        (dsa_dza,) = tdots((ds_sc_a, dz_sc_a))
+        (dsa_dza,) = dots((ds_sc_a, dz_sc_a))
         sm = sigma * mu
         cross = jprod(ds_sc_a, dz_sc_a, dsa_dza)
         d_s = HV(lam2.orth + cross.orth - sm, lam2.head + cross.head - sm,
                  lam2.tail + cross.tail)
-        (ltd2,) = tdots((lam, d_s))
+        (ltd2,) = dots((lam, d_s))
         dx, dy, dz, ds_sc, dz_sc, quality = newton(d_s, ltd2)
         alpha = torch.clamp_max(cfg.step_frac * step(ds_sc, dz_sc), 1.0)
 
@@ -494,9 +506,9 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
             a_hat = torch.clamp_max(alpha / cfg.step_frac + 0.1, 1.0)
             v_s = axpy(lam, a_hat, ds_sc)
             v_z = axpy(lam, a_hat, dz_sc)
-            (vs_vz,) = tdots((v_s, v_z))
+            (vs_vz,) = dots((v_s, v_z))
             vprod = jprod(v_s, v_z, vs_vz)
-            (vp_tt,) = tdots((vprod, vprod))
+            (vp_tt,) = dots((vprod, vprod))
             # the spectral clip delta (zero on in-band blocks)
             n1 = torch.sqrt(torch.clamp_min(vp_tt, 0.0))        # (N,)
             lp = vprod.head + n1
@@ -507,12 +519,12 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
             vo = vprod.orth
             tn = HV(vo - torch.clamp(vo, lo_b, hi_b), -0.5 * (dp + dm),
                     -(vprod.tail * _col(fcl)))
-            (l_tn,) = tdots((lam, tn))
+            (l_tn,) = dots((lam, tn))
             dtil_c = jdiv(lam, tn, ltl, l_tn)
             dxc, dyc, dzc = kkt_solve_once(
                 f, torch.zeros_like(c), torch.zeros_like(b),
-                apply_W(sc, dtil_c))
-            dz_sc_c = apply_W(sc, dzc)
+                W(sc, dtil_c))
+            dz_sc_c = W(sc, dzc)
             ds_sc_c = vneg(vadd(dtil_c, dz_sc_c))
             c_ds = vadd(ds_sc, ds_sc_c)
             c_dz = vadd(dz_sc, dz_sc_c)
@@ -525,7 +537,7 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
             dz_sc = hwhere(accept, c_dz, dz_sc)
             alpha = torch.where(accept, alpha_c, alpha)
 
-        ds = apply_W(sc, ds_sc)
+        ds = W(sc, ds_sc)
 
         step_finite = (
             torch.isfinite(alpha) & (alpha > 0)
@@ -624,9 +636,11 @@ def _core(cfg: SolverConfig, c, G_o, G_H, G_t, h_o, h_H, h_t, A, b):
     return (x, y, *s, *z, status, st.k, stats, st.hist)
 
 
-def _split(a: np.ndarray, l: int, qs: tuple[int, ...], t_max: int):
-    """Flat rows (m, ...) in cone order -> the orthant rows (l, ...), the
-    SOC heads (N, ...) and the SOC tails (N, t_max, ...), zero-padded."""
+def _split(a: np.ndarray, l: int, qs: tuple[int, ...], t_max: int,
+           l_pad: int | None = None, orth_pad: float = 0.0):
+    """Flat rows (m, ...) in cone order -> the orthant rows (l_pad, ...;
+    rows past l filled with `orth_pad`), the SOC heads (N, ...) and the
+    SOC tails (N, t_max, ...), zero-padded."""
     rest = a.shape[1:]
     head = np.zeros((len(qs),) + rest)
     tail = np.zeros((len(qs), t_max) + rest)
@@ -635,7 +649,10 @@ def _split(a: np.ndarray, l: int, qs: tuple[int, ...], t_max: int):
         head[i] = a[off]
         tail[i, : q - 1] = a[off + 1 : off + q]
         off += q
-    return np.asarray(a[:l], np.float64), head, tail
+    orth = np.asarray(a[:l], np.float64)
+    if l_pad is not None and l_pad > l:
+        orth = np.concatenate([orth, np.full((l_pad - l,) + rest, orth_pad)])
+    return orth, head, tail
 
 
 def _gather(o, hd, tl, l: int, qs: tuple[int, ...]) -> np.ndarray:
@@ -658,14 +675,17 @@ def prepare_huge(
     config: SolverConfig = DEFAULT_CONFIG,
     device=None,
     dtype=None,
+    mesh=None,
 ):
     """Device-resident preparation for the huge-cone solve: splits the
     problem into the head/tail layout, places it on the device ONCE, and
     returns `(fn, args, assemble)` where `fn(*args)` runs the IPM and
     `assemble(out)` builds the host result tuple, so repeat solves reuse
-    the upload of G.  `device=None` means "cuda" (it raises where CUDA is
-    absent); `device="cpu"` runs the kernels' plain versions.  `dtype`
-    takes None or any spelling of f64."""
+    the upload of G.  `mesh`: split the rows over the ranks of a 1-D mesh
+    (module doc); every rank passes the whole problem, places only its
+    rows, and gets the whole result from `assemble`.  `device=None` means
+    "cuda" (it raises where CUDA is absent); `device="cpu"` runs the
+    kernels' plain versions.  `dtype` takes None or any spelling of f64."""
     dev = resolve_device(device)
     resolve_dtype(dtype)
     config = _resolve_config(config)
@@ -680,17 +700,36 @@ def prepare_huge(
     A_h = np.zeros((0, n)) if A is None else np.asarray(A, np.float64)
     b_h = np.zeros((0,)) if b is None else np.asarray(b, np.float64)
 
-    t_max = max(max(q - 1 for q in qs), 1)
+    group = None if mesh is None else mesh_group(mesh)
+    r, ndev = (0, 1) if group is None else shard_index(group)
+
+    def padded(k):
+        return max(-(-k // ndev) * ndev, ndev)
+
+    l_pad = padded(l) if l else 0
+    t_max = padded(max(q - 1 for q in qs))
     G = np.asarray(G, np.float64)
-    G_o, G_H, G_t = _split(G, l, qs, t_max)
-    h_o, h_H, h_t = _split(np.asarray(h, np.float64), l, qs, t_max)
+    G_o, G_H, G_t = _split(G, l, qs, t_max, l_pad)
+    # padding orthant rows with h = 1 > 0 keeps them strictly feasible
+    h_o, h_H, h_t = _split(np.asarray(h, np.float64), l, qs, t_max, l_pad, 1.0)
+    lo, to = l_pad // ndev, t_max // ndev          # this rank's rows
     args = tuple(_put(a, dev) for a in
-                 (c, G_o, G_H, G_t, h_o, h_H, h_t, A_h, b_h))
+                 (c, G_o[r * lo:(r + 1) * lo], G_H,
+                  G_t[:, r * to:(r + 1) * to], h_o[r * lo:(r + 1) * lo], h_H,
+                  h_t[:, r * to:(r + 1) * to], A_h, b_h))
 
     def fn(*dev_args):
-        return _core(config, *dev_args)
+        return _core(config, group, *dev_args)
+
+    def whole(t, dim):
+        """Every rank's part of an orthant (dim 0) or tail (dim 1) block."""
+        return torch.cat(list(coll.all_gather(t, group).unbind(0)), dim=dim)
 
     def assemble(raw):
+        if group is not None:
+            raw = list(raw)
+            for i, dim in ((2, 0), (4, 1), (5, 0), (7, 1)):
+                raw[i] = whole(raw[i], dim)
         (x, y, s_o, s_H, s_t, z_o, z_H, z_t, status, k, stats, hist) = (
             t.cpu().numpy() for t in raw)
         out = (x, y, _gather(s_o, s_H, s_t, l, qs),
@@ -714,9 +753,11 @@ def solve_huge(
     config: SolverConfig = DEFAULT_CONFIG,
     device=None,
     dtype=None,
+    mesh=None,
 ):
     """Solve min c'x s.t. Ax = b, Gx + s = h, s in R+^l x Q^q1 x ... on
-    one device (sum(qs) may be millions).
+    one device or with the rows split over the ranks of `mesh` (sum(qs)
+    may be millions).
 
     Returns (x, y, s, z, status, iterations, stats) with stats in the
     port's layout [pcost, dcost, gap, relgap, pres, dres,
@@ -724,7 +765,7 @@ def solve_huge(
     config.collect_history the per-iteration table (k x 6: pcost, dcost,
     gap, pres, dres, step) is appended."""
     fn, args, assemble = prepare_huge(c, G, h, l, qs, A=A, b=b, config=config,
-                                      device=device, dtype=dtype)
+                                      device=device, dtype=dtype, mesh=mesh)
     return assemble(fn(*args))
 
 
@@ -736,13 +777,14 @@ def solve_huge_soc(
     config: SolverConfig = DEFAULT_CONFIG,
     device=None,
     dtype=None,
+    mesh=None,
 ):
     """Single-SOC wrapper.  Returns (x, s, z, status, iterations,
     stats=[pcost, gap, pres, dres]), the reference's historical 4-stat
     layout; `solve_huge` has the full one."""
     q = np.shape(G)[0] - l
     out = solve_huge(c, G, h, l, (q,), config=config, device=device,
-                     dtype=dtype)
+                     dtype=dtype, mesh=mesh)
     x, y, s, z, status, k, stats = out[:7]
     return (x, s, z, status, k,
             np.asarray([stats[0], stats[2], stats[4], stats[5]]))

@@ -1,5 +1,6 @@
 """Block-partitioned KKT with the Schur reduction of the coupling rows, on
-one device: the port of `socp_tpu/parallel/schur.py`.
+one device or with the blocks sharded over the ranks of a mesh: the port
+of `socp_tpu/parallel/schur.py`.
 
 Problem class: K structurally identical blocks coupled only through p
 shared equality constraints,
@@ -32,10 +33,17 @@ two refined ones) and 4 tri_pair_single; a Gondzio corrector adds 2 + 1.
 Unlike the batched driver (ipm/driver.py), where each instance has its own
 step, every scalar here is global over the blocks, as the reference's
 psum / pmin make it: the step, mu, the norms, the stop flags, the
-refinement quality, the Gondzio band.  On one device those collectives are
-the identity (the reference's `ndev == 1` case), so `ring_schur` changes
-nothing.  The loop syncs with the host once an iteration, on its
-condition, as the batched driver's does.
+refinement quality, the Gondzio band.  With `mesh=` the K blocks are split
+over the ranks (K / N each, contiguous) and those reductions are the
+collectives of parallel/collectives.py over the mesh's group: `psum` for
+every sum over blocks, `pmin` for the steps and the interior shifts, and
+for S, the one large collective a factor, `psum` or, with
+`SolverConfig.ring_schur`, `ring_allreduce` (4 chunks of its last axis).
+Every such value is then the same bits on every rank, and so is every
+branch taken from it.  Without a mesh they are the identity (one device),
+and `ring_schur` changes nothing.  The loop syncs with the host once an
+iteration, on its condition (a replicated value: no collective of its
+own), as the batched driver's does.
 
 Config, as the reference's block path resolves it off the TPU:
 `gondzio_correctors=None` is 0.  `factor_dtype` is ignored: the
@@ -58,6 +66,8 @@ from socp_tpu_torch.cones import ops as cops
 from socp_tpu_torch.cones.layout import ConeLayout, make_layout
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from socp_tpu_torch.kkt.dense import EqChol, _eq_chol, _mtv, _mv
+from socp_tpu_torch.parallel import collectives as coll
+from socp_tpu_torch.parallel.mesh import mesh_group, shard_index
 from socp_tpu_torch.problem import ConeDims
 from socp_tpu_torch.solution import Status
 
@@ -115,14 +125,28 @@ def _sumsq(v: torch.Tensor) -> torch.Tensor:
 
 
 def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
-          Pq):
-    """The block IPM on padded tensors of one device: c (K, nb), G (K,
-    m_pad, nb), h (K, m_pad), A (K, p, nb), b (p,), Pq (K, nb, nb) or
-    None.  Returns (x, y, s, z, status, k, stats, hist) as tensors."""
+          Pq, group=None, K_total=None):
+    """The block IPM on padded tensors of this rank's blocks: c (K, nb),
+    G (K, m_pad, nb), h (K, m_pad), A (K, p, nb), b (p,) replicated, Pq
+    (K, nb, nb) or None.  `group`: the process group the blocks are
+    sharded over (None: one device, every collective the identity);
+    `K_total` the block count over all ranks.  Returns (x, y, s, z,
+    status, k, stats, hist) as tensors, x, s and z this rank's blocks."""
     dtype, device = c.dtype, c.device
     K, nb = c.shape
     p = b.shape[0]
     m = layout.m_pad
+
+    def psum(v):
+        return coll.psum(v, group)
+
+    def schur_reduce(S):
+        """The one large collective a factor: the sum of the ranks' (p, p)
+        Schur contributions, by the ring or by one all-reduce."""
+        if cfg.ring_schur and group is not None:
+            return coll.ring_allreduce(S, group,
+                                       n_chunks=min(4, max(S.shape[-1], 1)))
+        return psum(S)
 
     def A_T(v):
         """A_i' v per block: (p,) -> (K, nb)."""
@@ -134,23 +158,28 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
 
     def step(u, du):
         """The global max step: the least over the blocks."""
-        return torch.amin(cops.max_step(layout, u, du))
+        return coll.pmin(torch.amin(cops.max_step(layout, u, du)), group)
 
     def gnorm(v):
+        """The 2-norm of a replicated vector."""
         return torch.sqrt(_sumsq(v))
 
+    def bnorm(v):
+        """The 2-norm over all blocks of a blocked (K, ...) tensor."""
+        return torch.sqrt(psum(_sumsq(v)))
+
     e = cops.identity(layout, K, dtype, device)
-    nu_total = float(layout.degree) * K
+    nu_total = float(layout.degree) * (K if K_total is None else K_total)
     inf = torch.tensor(torch.inf, dtype=dtype, device=device)
 
     norm_b = torch.clamp_min(gnorm(b), 1.0)
-    norm_h = torch.clamp_min(gnorm(h), 1.0)
-    norm_c = torch.clamp_min(gnorm(c), 1.0)
+    norm_h = torch.clamp_min(bnorm(h), 1.0)
+    norm_c = torch.clamp_min(bnorm(c), 1.0)
 
     def quad(x):
         if not has_P:
             return 0.0
-        return 0.5 * torch.sum(x * _mv(Pq, x))
+        return 0.5 * psum(torch.sum(x * _mv(Pq, x)))
 
     def factor(scaling):
         Ghat = cops.scale_rows_Winv(layout, scaling, G)
@@ -159,7 +188,7 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
             H = H + Pq
         LH = _eq_chol(H, cfg.delta_reg)
         HinvAT = LH.solve(A.transpose(1, 2))                 # (K, nb, p)
-        S = torch.einsum("kpn,knq->pq", A, HinvAT)
+        S = schur_reduce(torch.einsum("kpn,knq->pq", A, HinvAT))
         LS = _eq_chol(S[None], cfg.delta_reg)
         return Factored(LH=LH, LS=LS, Ghat=Ghat, scaling=scaling)
 
@@ -168,7 +197,7 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
         bhz = cops.apply_Winv(layout, f.scaling, bz)
         btx = bx + _mtv(f.Ghat, bhz)
         t = f.LH.solve(btx)
-        dy = f.LS.solve((A_sum(t) - by)[None])[0]
+        dy = f.LS.solve((psum(A_sum(t)) - by)[None])[0]
         dx = f.LH.solve(btx - A_T(dy))
         dz = cops.apply_Winv(layout, f.scaling, _mv(f.Ghat, dx) - bhz)
         return dx, dy, dz
@@ -181,16 +210,17 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
         quality = torch.zeros((), dtype=dtype, device=device)
         if cfg.refine_steps <= 0:
             return dx, dy, dz, quality
-        rhs_norm = torch.sqrt(_sumsq(bx) + _sumsq(bz) + _sumsq(by)) + 1.0
+        rhs_norm = torch.sqrt(psum(_sumsq(bx) + _sumsq(bz)) + _sumsq(by)) + 1.0
         for _ in range(cfg.refine_steps):
             rx = bx - (A_T(dy) + _mtv(G, dz))
             if has_P:
                 rx = rx - _mv(Pq, dx)
-            ry = by - A_sum(dx)
+            ry = by - psum(A_sum(dx))
             WWdz = cops.apply_W(layout, f.scaling,
                                 cops.apply_W(layout, f.scaling, dz))
             rz = bz - (_mv(G, dx) - WWdz)
-            quality = torch.sqrt(_sumsq(rx) + _sumsq(rz) + _sumsq(ry)) / rhs_norm
+            quality = torch.sqrt(psum(_sumsq(rx) + _sumsq(rz))
+                                 + _sumsq(ry)) / rhs_norm
             ex, ey, ez = kkt_solve_once(f, rx, ry, rz)
             dx, dy, dz = dx + ex, dy + ey, dz + ez
         return dx, dy, dz, quality
@@ -199,18 +229,18 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
         rx = A_T(y) + _mtv(G, z) + c
         if has_P:
             rx = rx + _mv(Pq, x)
-        ry = A_sum(x) - b
+        ry = psum(A_sum(x)) - b
         rz = _mv(G, x) + s - h
         return rx, ry, rz
 
     def metrics(x, y, s, z, rx, ry, rz):
-        gap = torch.sum(s * z)
-        pcost = torch.sum(c * x) + quad(x)
-        dcost = pcost + y @ ry + torch.sum(z * rz) - gap
+        gap = psum(torch.sum(s * z))
+        pcost = psum(torch.sum(c * x)) + quad(x)
+        dcost = pcost + y @ ry + psum(torch.sum(z * rz)) - gap
         relgap = torch.where(pcost < 0, gap / -pcost,
                              torch.where(dcost > 0, gap / dcost, inf))
-        pres = torch.maximum(gnorm(ry) / norm_b, gnorm(rz) / norm_h)
-        dres = gnorm(rx) / norm_c
+        pres = torch.maximum(gnorm(ry) / norm_b, bnorm(rz) / norm_h)
+        dres = bnorm(rx) / norm_c
         return gap, pcost, dcost, relgap, pres, dres
 
     def aty_gtz(x, rx):
@@ -222,10 +252,10 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
     f0 = factor(cops.identity_scaling(layout, K, dtype, device))
     x0, _, z0, _ = kkt_solve(f0, c.new_zeros((K, nb)), b, h)
     shat = -z0
-    ap = -torch.amin(cops.lambda_min(layout, shat))
+    ap = -coll.pmin(torch.amin(cops.lambda_min(layout, shat)), group)
     s0 = torch.where(ap < 0, shat, shat + (1.0 + ap) * e)
     _, y0, zhat, _ = kkt_solve(f0, -c, c.new_zeros(p), c.new_zeros((K, m)))
-    ad = -torch.amin(cops.lambda_min(layout, zhat))
+    ad = -coll.pmin(torch.amin(cops.lambda_min(layout, zhat)), group)
     z0 = torch.where(ad < 0, zhat, zhat + (1.0 + ad) * e)
 
     n_hist = cfg.max_iter if cfg.collect_history else 0
@@ -261,10 +291,10 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
         bz_ = torch.where(better, z, st.bz_)
 
         # Farkas certificates read off the residuals
-        hz_by = torch.sum(h * z) + y @ b
-        pinf = (hz_by < 0) & (gnorm(aty_gtz(x, rx)) <= cfg.feastol * -hz_by)
-        cx = torch.sum(c * x)
-        dinf_res = torch.maximum(gnorm(ry + b), gnorm(rz + h))
+        hz_by = psum(torch.sum(h * z)) + y @ b
+        pinf = (hz_by < 0) & (bnorm(aty_gtz(x, rx)) <= cfg.feastol * -hz_by)
+        cx = psum(torch.sum(c * x))
+        dinf_res = torch.maximum(gnorm(ry + b), bnorm(rz + h))
         dinf = (cx < 0) & (dinf_res <= cfg.feastol * -cx)
 
         scaling = cops.nt_scale(layout, s, z)
@@ -283,7 +313,8 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
         _, _, _, ds_sc_a, dz_sc_a, _ = newton(lam2)
         alpha_a = torch.clamp_max(
             torch.minimum(step(lam, ds_sc_a), step(lam, dz_sc_a)), 1.0)
-        gap_a = torch.sum((lam + alpha_a * ds_sc_a) * (lam + alpha_a * dz_sc_a))
+        gap_a = psum(torch.sum((lam + alpha_a * ds_sc_a)
+                               * (lam + alpha_a * dz_sc_a)))
         sigma = torch.clamp(gap_a / gap, 0.0, 1.0) ** 3
 
         d_s = lam2 + cops.jprod(layout, ds_sc_a, dz_sc_a) - sigma * mu * e
@@ -324,7 +355,7 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
 
         step_finite = (
             torch.isfinite(alpha) & (alpha > 0)
-            & torch.isfinite(_sumsq(dx)) & torch.isfinite(_sumsq(ds))
+            & torch.isfinite(psum(_sumsq(dx))) & torch.isfinite(psum(_sumsq(ds)))
         )
         stalled = quality > cfg.solve_quality_tol
         numerr = ~step_finite | ~torch.isfinite(gap) | stalled
@@ -375,11 +406,11 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
 
     # relaxed exit certificates on the FINAL iterate
     rxf, ryf, rzf = residuals(st.x, st.y, st.s, st.z)
-    hz_by_f = torch.sum(h * st.z) + st.y @ b
+    hz_by_f = psum(torch.sum(h * st.z)) + st.y @ b
     pinf_exit = restore & (hz_by_f < 0) & (
-        gnorm(aty_gtz(st.x, rxf)) <= cfg.feastol_inacc * -hz_by_f)
-    cx_f = torch.sum(c * st.x)
-    dres_cert = torch.maximum(gnorm(ryf + b), gnorm(rzf + h))
+        bnorm(aty_gtz(st.x, rxf)) <= cfg.feastol_inacc * -hz_by_f)
+    cx_f = psum(torch.sum(c * st.x))
+    dres_cert = torch.maximum(gnorm(ryf + b), bnorm(rzf + h))
     dinf_exit = restore & (cx_f < 0) & (dres_cert <= cfg.feastol_inacc * -cx_f)
 
     x = torch.where(restore, st.bx, st.x)
@@ -419,12 +450,16 @@ def solve_block(
     config: SolverConfig = DEFAULT_CONFIG,
     dtype=None,
     device=None,
+    mesh=None,
 ):
-    """Solve a block SOCP with the Schur-reduced KKT on one device.
+    """Solve a block SOCP with the Schur-reduced KKT, on one device or with
+    the blocks sharded over the ranks of the 1-D `mesh` (parallel/mesh.py;
+    the block count must divide by its size).
 
     `prob` is this module's BlockSocpProblem or the reference's, read by
-    its fields.  Returns (x (K, nb), y (p,), s, z in the original block
-    cone order, status, iterations, stats) with stats in the driver's
+    its fields; every rank passes the whole problem.  Returns (x (K, nb),
+    y (p,), s, z in the original block cone order, status, iterations,
+    stats), the whole problem's on every rank, with stats in the driver's
     layout [pcost, dcost, gap, relgap, pres, dres, inaccurate_flag].  With
     config.collect_history the per-iteration table is appended as an 8th
     element (k x 6: pcost, dcost, gap, pres, dres, step).  `device=None`
@@ -438,15 +473,27 @@ def solve_block(
     dims = ConeDims(prob.block_dims.l, tuple(prob.block_dims.qs))
     layout = make_layout(dims, config.bucket_multiple)
     has_P = prob.P is not None
+    K = prob.n_blocks
+    group = None if mesh is None else mesh_group(mesh)
+    sl = slice(None)
+    if group is not None:
+        r, ndev = shard_index(group)
+        if K % ndev != 0:
+            raise ValueError(f"blocks {K} not divisible by mesh size {ndev}")
+        sl = slice(r * (K // ndev), (r + 1) * (K // ndev))
 
     out = _core(
         layout, config, has_P,
-        _put(prob.c, dev),
-        _put(layout.pad_rows(np.asarray(prob.G, np.float64)), dev),
-        _put(layout.pad_vec(np.asarray(prob.h, np.float64)), dev),
-        _put(prob.A, dev), _put(prob.b, dev),
-        _put(prob.P, dev) if has_P else None,
+        _put(prob.c[sl], dev),
+        _put(layout.pad_rows(np.asarray(prob.G[sl], np.float64)), dev),
+        _put(layout.pad_vec(np.asarray(prob.h[sl], np.float64)), dev),
+        _put(prob.A[sl], dev), _put(prob.b, dev),
+        _put(prob.P[sl], dev) if has_P else None,
+        group=group, K_total=K,
     )
+    if group is not None:          # x, s, z: every rank's blocks
+        out = tuple(coll.all_gather(t, group).flatten(0, 1) if i in (0, 2, 3)
+                    else t for i, t in enumerate(out))
     x, y, s, z, status, k, stats, hist = (t.cpu().numpy() for t in out)
     res = (x, y, layout.unpad_vec(s), layout.unpad_vec(z), Status(int(status)),
            int(k), stats)
@@ -482,3 +529,15 @@ def random_block_problem(seed: int, K: int = 16, nb: int = 8,
     pcost = float(np.sum(c * xs))
     prob = BlockSocpProblem(c=c, G=G, h=h, block_dims=block_dims, A=A, b=b)
     return prob, pcost
+
+
+def dryrun(mesh, device=None) -> None:
+    """One tiny block-Schur solve over `mesh` (dryrun.dryrun_multichip's
+    block step): two blocks a rank, 4 iterations, no refinement."""
+    ndev = mesh.mesh.numel()
+    prob, _ = random_block_problem(0, K=2 * ndev, nb=6, p=3)
+    cfg = SolverConfig(max_iter=4, refine_steps=0)
+    x = solve_block(prob, config=cfg, device=device, mesh=mesh)[0]
+    if x.shape != prob.c.shape or not np.isfinite(x).all():
+        raise RuntimeError(f"schur.dryrun: x of shape {x.shape}, finite "
+                           f"{np.isfinite(x).all()}")

@@ -596,3 +596,70 @@ def test_probe_kernels_bit_equal_to_plain(card):
     LT = L.T.contiguous()
     bb = torch.ones(128, 1, device=card)
     assert torch.equal(probes.fwd_subst(LT, bb), probes.fwd_subst_plain(LT, bb))
+
+
+# ---- the multi-device layer on a one-rank NCCL group ---------------------
+
+@pytest.fixture(scope="module")
+def nccl_world():
+    """A world of one rank on NCCL (parallel/runtime.py), torn down after
+    the module; every collective of a group of one is still a NCCL call."""
+    import socket
+
+    import torch.distributed as dist
+
+    from socp_tpu_torch.parallel.runtime import init_distributed
+
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device; run on the card with -m cuda")
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    init_distributed(0, 1, f"tcp://127.0.0.1:{port}", device="cuda:0")
+    assert dist.get_backend() == "nccl"
+    yield
+    dist.destroy_process_group()
+
+
+def test_collectives_on_one_nccl_rank_equal_the_local_op(card, nccl_world):
+    from socp_tpu_torch.parallel import collectives as coll
+    from socp_tpu_torch.parallel.mesh import batch_mesh, mesh_group
+
+    group = mesh_group(batch_mesh(1))
+    x = torch.as_tensor(np.random.default_rng(0).normal(size=(4, 12)),
+                        device=card)
+    coll.reset_counts()
+    assert torch.equal(coll.psum(x, group), x)
+    assert torch.equal(coll.pmin(x, group), x)
+    assert torch.equal(coll.allsum(x, group), x)
+    for chunks in (1, 3, 5):
+        assert torch.equal(coll.ring_allreduce(x, group, n_chunks=chunks), x)
+    assert torch.equal(coll.all_gather(x, group), x[None])
+    assert bool(coll.pany(torch.tensor(True, device=card), group))
+    assert not bool(coll.pany(torch.tensor(False, device=card), group))
+    assert coll.counts() == {"psum": 1, "pmin": 1, "pany": 2, "all_gather": 1,
+                             "allsum": 1, "ring_allreduce": 3, "staged": 0}
+
+
+def test_block_solve_on_one_nccl_rank_is_bit_equal(card, nccl_world):
+    """Config 4's block shape at K = 32, with and without ring_schur:
+    solve_block over a one-rank mesh gives the bits of mesh=None, through
+    NCCL collectives."""
+    from socp_tpu_torch.parallel import collectives as coll
+    from socp_tpu_torch.parallel.mesh import block_mesh
+    from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
+    from socp_tpu_torch.problem import ConeDims
+
+    prob, _ = random_block_problem(0, K=32, nb=10, p=8,
+                                   block_dims=ConeDims(l=4, qs=(6,)))
+    for ring in (False, True):
+        cfg = socp_tpu_torch.SolverConfig(ring_schur=ring)
+        alone = solve_block(prob, config=cfg)
+        coll.reset_counts()
+        meshed = solve_block(prob, config=cfg, mesh=block_mesh(1))
+        counts = coll.counts()
+        assert alone[4] == socp_tpu_torch.Status.OPTIMAL
+        for a, b in zip(alone, meshed):
+            assert np.array_equal(a, b) if isinstance(a, np.ndarray) else a == b
+        assert counts["psum"] > 0 and counts["pmin"] > 0
+        assert (counts["ring_allreduce"] > 0) == ring

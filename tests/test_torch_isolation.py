@@ -49,8 +49,28 @@ def test_imports_without_jax_and_without_the_reference():
     assert len(names) >= 28, names
     for new in ("models.random_socp", "models.portfolio", "carry", "api",
                 "parallel.schur", "parallel.admm", "models.stochastic",
-                "utils.checkpoint", "parallel.hugecone"):
+                "utils.checkpoint", "parallel.hugecone", "parallel.mesh",
+                "parallel.runtime", "parallel.collectives", "parallel.batch",
+                "parallel.dryrun"):
         assert f"socp_tpu_torch.{new}" in names
+
+
+def test_rank_helper_imports_no_jax():
+    """tests/_dist_ranks.py is what a spawned rank imports to find its
+    target: with jax blocked it imports, and loads nothing of socp_tpu."""
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["jax"] = None
+        from tests import _dist_ranks
+        loaded = [m for m in sys.modules
+                  if m == "socp_tpu" or m.startswith("socp_tpu.")]
+        assert not loaded, loaded
+        print(" ".join(sorted(_dist_ranks.CASES)))
+    """)
+    res = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert res.returncode == 0, res.stderr
+    assert {"collectives", "schur", "admm", "hugecone"} <= set(res.stdout.split())
 
 
 def test_entry_points_default_to_cuda():
