@@ -157,11 +157,39 @@ Phases, each printing one JSON line to stdout:
               status and inaccurate flag as the CPU re-solve says, the
               portfolio's checks at this mode's tolerances, only the f32
               single kernels launched; then a profile as in phase 7.
+ 10b. f32carry  the reference's f32-carries mode, dtype=torch.float32
+              (TF32 asserted off before and after): (a) config 3 at B =
+              4096 through prepare_batch, the f64 default and the f32-factor
+              mode, then f32 carries with the default config and with
+              refine_in_f64=True, one after another: solves/s, status
+              counts, lockstep and per-instance iterations, the launches
+              (f32 carries: only chol_batched_f32 and tri_pair_batched_f32,
+              in the loop's ratios), and on every instance the f32-mode
+              gates of PERF.md section 2 with pres, dres, gap and relgap
+              recomputed in numpy f64 and pcost within 5e-5 of the closed
+              form; its profile follows ("config3_f32carry"); (b) config 2
+              through solve: only the single f32 kernels, the portfolio's
+              checks at the relaxed tolerances, pcost within 5e-5 of the
+              f64 solve; (c) config 4 at K = 10,240 through solve_block,
+              against the f64 solve: only the f32 kernels, in the block
+              path's ratios; OPTIMAL would be held at the gates and pcost
+              within 5e-5, any other exit must be the reference's own f32
+              status at this K (NUMERICAL_ERROR: f32 sums over 102,400
+              variables stall above the relaxed gap); (d) config 5 at S =
+              65,536 as one batch, ROUNDS5_F32 rounds, against f64: every
+              inner solve OPTIMAL, the objective within 5e-5, only the
+              batched f32 kernels.  Status, iterations (and the difference
+              from f64) and seconds of each.
  11. probes   the ports of the Mosaic probes (scripts/pallas_probe*.py;
               socp_tpu_torch/ops/probes.py, csrc/probes.cu) at the probes'
               own shapes, each bit-equal to its plain version and held to
               its script's own check, and timed as phase 3; P1, the f32
-              Cholesky at n = 128, runs the f32 single kernel.
+              Cholesky at n = 128, runs the f32 single kernel.  probe_fwd
+              also at FWD_SHAPES (n = 100 and 33, k = 1 and 4) and with a
+              zero, a negative zero, a subnormal, a huge value and a NaN in
+              b, bit for bit; then timed against solve_triangular in turns
+              (kernel, library, library, kernel, twice); and an empty
+              kernel's launch (probe_empty), the floor under every probe.
 Then a {"kernels": [...]} line, one row per TPU kernel (11): the f64
 batched kernels at config 3's shapes, with their launches in phase 5 (each
 f64 row also has "launches_by_path": phases 5, 5n, 7, 7n, 7b, 7c, 7d,
@@ -172,7 +200,9 @@ f64 single-instance ones at n = 500, k = 1 with the path's other shapes
 beside, with their launches in phase 7's default run of config 2 and, per
 config, of configs 1 and 2; the f32 Cholesky and pair solve at B = 4096,
 n = 102 with the single instances beside, with their launches in phases 9
-and 10; the probes (P1 its own row), with their launches in phase 11.  A
+and 10 (and 10b's by run beside); the probes (P1 its own row), with their
+launches in phase 11, P2-P5 with the empty launch's device time beside
+and P5 with its timings in turns.  A
 row's "ms" and "library_ms" are event times of one call (call_ms,
 library_call_ms), "kernel_ms" and "library_kernel_ms" device times beside
 them.  Last, the {"ok": true, ...} line.
@@ -251,6 +281,11 @@ KAPPA = {"f64": 1e8, "f32": 1e4}
 F32_SINGLE_NS = (1, 2, 5, 31, 32, 33, 50, 64, 65, 128, 240, 241, 333, 500,
                  768, 1000)
 RELAXED_FEAS, RELAXED_GAP = 1e-4, 5e-5  # feastol_inacc, abstol/reltol_inacc
+# the f32carry phase: at K4 blocks the reference's own f32 block path
+# exits REF4_F32_STATUS (tests/test_torch_f32carry.py REF4_F32); config 5's
+# rounds; the probe_fwd shapes held bit for bit ((n, k), P5's first)
+REF4_F32_STATUS, ROUNDS5_F32 = "NUMERICAL_ERROR", 2
+FWD_SHAPES = ((128, 1), (128, 4), (100, 1), (100, 4), (33, 1), (33, 4))
 COUNTERS = {"chol_batched": "chol_launches",
             "tri_pair_batched": "tri_pair_launches",
             "chol_single": "chol_single_launches",
@@ -439,6 +474,19 @@ def nvidia_smi():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
+
+
+def sm_clock():
+    """The card's SM clock now, in MHz, as nvidia-smi reads it (its text
+    where that is not a number)."""
+    text = subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    try:
+        return float(text)
+    except ValueError:
+        return text
 
 
 def phase_device():
@@ -1105,7 +1153,7 @@ def admm_rounds():
         admm._fetch = fetch
 
 
-def run_admm(data, cfg, chunk, rounds, device="cuda", tol=1e-5):
+def run_admm(data, cfg, chunk, rounds, device="cuda", tol=1e-5, dtype=None):
     """admm_consensus on scenario_portfolio's output, as bench_all calls it
     (rho = 1)."""
     from socp_tpu_torch.parallel.admm import admm_consensus
@@ -1113,7 +1161,7 @@ def run_admm(data, cfg, chunk, rounds, device="cuda", tol=1e-5):
     c, G, h, dims, A, b, info = data
     return admm_consensus(c, G, h, dims, info["n"], A=A, b=b, rho=1.0,
                           outer_iters=rounds, tol=tol, config=cfg,
-                          scenario_chunk=chunk, device=device)
+                          scenario_chunk=chunk, device=device, dtype=dtype)
 
 
 def timed_admm(label, data, cfg, chunk, rounds):
@@ -2102,6 +2150,233 @@ def phase_f32factor_single():
     return launches, (lambda: solve(prob, config=cfg, device="cuda")), solve_s
 
 
+def f32_gates(label, x, s, z, stats, c, G, h):
+    """PERF.md section 2's f32-mode gates on every instance of a batch
+    without equalities, its residuals recomputed in numpy f64 from the
+    returned (unpadded) iterates and the f64 data: pres and dres <= 1e-4,
+    gap or relgap <= 5e-5.  Returns the worst of each."""
+    rz = np.einsum("bmn,bn->bm", G, x) + s - h
+    rx = np.einsum("bmn,bm->bn", G, z) + c
+    pres = np.linalg.norm(rz, axis=1) / np.maximum(1.0, np.linalg.norm(h, axis=1))
+    dres = np.linalg.norm(rx, axis=1) / np.maximum(1.0, np.linalg.norm(c, axis=1))
+    gap = np.sum(s * z, axis=1)
+    pcost = np.sum(c * x, axis=1)
+    dcost = pcost + np.sum(z * rz, axis=1) - gap
+    with np.errstate(divide="ignore", invalid="ignore"):
+        relgap = np.where(pcost < 0, gap / -pcost,
+                          np.where(dcost > 0, gap / dcost, np.inf))
+    ok = ((pres <= RELAXED_FEAS) & (dres <= RELAXED_FEAS)
+          & ((gap <= RELAXED_GAP) | (relgap <= RELAXED_GAP)))
+    check(bool(ok.all()), f"f32carry {label}: {int((~ok).sum())} instances "
+                          "miss the f32-mode gates (numpy f64 residuals)")
+    check(bool(np.allclose(stats[:, 0], pcost, rtol=1e-5, atol=1e-6)),
+          f"f32carry {label}: pcost in stats against c'x")
+    return {"max_pres": float(pres.max()), "max_dres": float(dres.max()),
+            "max_gap": float(gap.max()), "max_relgap": float(relgap.max())}
+
+
+def phase_f32carry():
+    """The reference's f32-carries mode (dtype=torch.float32; module doc,
+    phase 10b), each run with the counts set to 0 just before it; TF32 is
+    asserted off before and after.  Returns the launches by run and, for
+    the profile, config 3's f32-carry solve."""
+    from socp_tpu_torch import SolverConfig, Status, prepare_batch, solve
+    from socp_tpu_torch.models.portfolio import portfolio, portfolio_risk
+    from socp_tpu_torch.models.robust_ls import robust_ls_batch
+    from socp_tpu_torch.models.stochastic import scenario_portfolio
+    from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
+    from socp_tpu_torch.problem import ConeDims
+
+    tf32 = tf32_off()
+    f32 = torch.float32
+    launches, profile = {}, None
+
+    # (a) config 3: the f64 default, the f32-factor mode, then f32 carries
+    # without and with refine_in_f64, one after another in this call
+    c, G, h, dims = robust_ls_batch(SEED, batch=B_MAIN, n=N_MAIN)
+    kk = dims.qs[0] - 1                              # closed form, as phase_main
+    D = -G[:, 1:kk + 1, :N_MAIN]
+    d = -h[:, 1:kk + 1]
+    c3 = {}
+    for label, cfg, dtype in (
+            ("c3_f64", SolverConfig(), None),
+            ("c3_f32factor", SolverConfig(factor_dtype="float32"), None),
+            ("c3", SolverConfig(), f32),
+            ("c3_refine_in_f64", SolverConfig(refine_in_f64=True), f32)):
+        fn, args, layout = prepare_batch(c, G, h, dims, config=cfg,
+                                         dtype=dtype, device="cuda")
+        fn(*args)[4].cpu()                           # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        status = out[4].cpu().numpy()                # syncs on the result
+        solve_s = time.perf_counter() - t0
+        counts = read_counts()
+        carry = {str(t.dtype) for t in (*out[:4], out[6])}
+        x, s3, z3, stats = (t.double().cpu().numpy() for t in
+                            (out[0], out[2], out[3], out[6]))
+        s3, z3 = layout.unpad_vec(s3), layout.unpad_vec(z3)
+        k = out[5].cpu().numpy()
+        xs = x[:, :N_MAIN]
+        obj = (np.linalg.norm(np.einsum("bkn,bn->bk", D, xs) - d, axis=1)
+               + 0.1 * np.linalg.norm(xs, axis=1))
+        rel = np.abs(stats[:, 0] - obj) / np.maximum(1.0, np.abs(obj))
+        kernels = (("chol_batched", "tri_pair_batched") if label == "c3_f64"
+                   else ("chol_batched_f32", "tri_pair_batched_f32"))
+        n_iter = counts[kernels[0]] - 1              # init 1 + 4, then 1 + 3
+        check(n_iter >= 1 and counts[kernels[1]] == 4 + 3 * n_iter
+              and sum(counts.values()) == sum(counts[n] for n in kernels),
+              f"f32carry {label}: launches {counts}")
+        n_opt = int(np.sum(status == int(Status.OPTIMAL)))
+        check(n_opt == B_MAIN, f"f32carry {label}: {n_opt}/{B_MAIN} OPTIMAL")
+        row = {"dtype": "float32" if dtype is f32 else "float64",
+               "carries": sorted(carry), "config": repr(cfg),
+               "optimal": n_opt, "inaccurate": int(stats[:, 6].sum()),
+               "solve_s": solve_s, "solves_per_s": B_MAIN / solve_s,
+               "lockstep_iterations": n_iter,
+               "lockstep_iteration_ms": solve_s / n_iter * 1e3,
+               "iters_max": int(k.max()), "iters_mean": float(k.mean()),
+               "max_pcost_rel_closed_form": float(rel.max()),
+               "launches": {n: counts[n] for n in kernels}}
+        if dtype is f32:
+            check(carry == {"torch.float32"}, f"f32carry {label}: carries {carry}")
+            check(bool((rel <= RELAXED_GAP).all()),
+                  f"f32carry {label}: pcost vs closed form, max rel {rel.max()}")
+            row["gates"] = f32_gates(label, x, s3, z3, stats, c, G, h)
+        c3[label] = row
+        launches[label] = counts
+        if label == "c3":
+            profile = (lambda fn=fn, args=args: fn(*args)[4].cpu(), solve_s)
+        del fn, args, out
+    emit({"phase": "f32carry", "run": "config3",
+          "config": f"robust_ls_batch({SEED}, batch={B_MAIN}, n={N_MAIN})",
+          "tf32": tf32, "runs": c3})
+
+    # (b) config 2 through solve: the single f32 kernels
+    prob, info = portfolio(SEED, n=500, k=20)
+    f64 = solve(prob, device="cuda")
+    solve(prob, dtype=f32, device="cuda")            # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    sol = solve(prob, dtype=f32, device="cuda")
+    times = [time.perf_counter() - t0]
+    counts = read_counts()
+    for _ in range(2):
+        t0 = time.perf_counter()
+        solve(prob, dtype=f32, device="cuda")
+        times.append(time.perf_counter() - t0)
+    n_iter = counts["chol_single_f32"] // 2 - 1      # p = 1: 2 + 13, then 2 + 10
+    check(n_iter >= 1 and counts["chol_single_f32"] == 2 + 2 * n_iter
+          and counts["tri_pair_single_f32"] == 13 + 10 * n_iter
+          and sum(counts.values()) == counts["chol_single_f32"]
+          + counts["tri_pair_single_f32"],
+          f"f32carry config 2: launches {counts}")
+    st = np.array([[sol.pcost, sol.dcost, sol.gap, sol.relgap, sol.pres, sol.dres]])
+    w = sol.x
+    model = {"risk": portfolio_risk(info, w), "sigma_max": info["sigma_max"],
+             "budget_err": abs(float(np.sum(w)) - 1.0), "w_min": float(w.min())}
+    rel2 = abs(sol.pcost - f64.pcost) / max(1.0, abs(f64.pcost))
+    check(sol.status == Status.OPTIMAL and bool(relaxed_ok(st).all())
+          and model["risk"] <= info["sigma_max"] * (1 + RELAXED_FEAS)
+          and model["budget_err"] <= RELAXED_FEAS
+          and model["w_min"] >= -RELAXED_FEAS and rel2 <= RELAXED_GAP,
+          f"f32carry config 2: {sol}, {model}, pcost vs f64 {rel2}")
+    launches["c2"] = counts
+    emit({"phase": "f32carry", "run": "config2",
+          "config": f"portfolio({SEED}, n=500, k=20)",
+          "status": sol.status_name, "inaccurate": sol.inaccurate,
+          "iterations": sol.iterations, "f64_iterations": f64.iterations,
+          "loop_iterations": n_iter, "solve_ms": statistics.median(times) * 1e3,
+          "solve_ms_reps": [t * 1e3 for t in times], "pcost": sol.pcost,
+          "pcost_rel_f64": rel2, "gap": sol.gap, "relgap": sol.relgap,
+          "pres": sol.pres, "dres": sol.dres, "launches": counts, **model})
+
+    # (c) config 4, against the f64 solve
+    for K in (K4,):
+        bprob, pstar = random_block_problem(SEED, K=K, nb=NB4, p=P4,
+                                            block_dims=ConeDims(l=4, qs=(6,)))
+        t0 = time.perf_counter()
+        b64 = solve_block(bprob, device="cuda")
+        s64 = time.perf_counter() - t0
+        solve_block(bprob, dtype=f32, device="cuda")     # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        x4, y4, s4, z4, status, k, stats = solve_block(bprob, dtype=f32,
+                                                       device="cuda")
+        s32 = time.perf_counter() - t0
+        counts = read_counts()
+        factors = counts["chol_batched_f32"]
+        check(factors == k + 2 and counts["chol_single_f32"] == factors
+              and counts["tri_pair_batched_f32"] == 9 * factors
+              and counts["tri_pair_single_f32"] == 4 * factors
+              and sum(counts.values()) == 15 * factors,
+              f"f32carry config 4 K={K}: launches {counts} for {k} iterations")
+        check(all(np.isfinite(a).all() for a in (x4, y4, s4, z4)),
+              f"f32carry config 4 K={K}: outputs not finite")
+        rel4 = abs(stats[0] - b64[6][0]) / max(1.0, abs(b64[6][0]))
+        if status == Status.OPTIMAL:
+            check(bool(relaxed_ok(stats[None]).all()) and rel4 <= RELAXED_GAP,
+                  f"f32carry config 4 K={K}: {stats}, pcost vs f64 {rel4}")
+        else:
+            # f32 carries cannot certify 102,400 variables: the reference's
+            # f32 block path ends so at this K too
+            check(status.name == REF4_F32_STATUS,
+                  f"f32carry config 4 K={K}: {status.name} in {k}, {stats}")
+        launches[f"c4_K{K}"] = counts
+        emit({"phase": "f32carry", "run": f"config4_K{K}",
+              "config": f"random_block_problem({SEED}, K={K}, nb={NB4}, "
+                        f"p={P4}, block_dims=ConeDims(l=4, qs=(6,)))",
+              "status": status.name.lower(), "iterations": k,
+              "f64_status": b64[4].name.lower(), "f64_iterations": b64[5],
+              "iteration_difference": k - b64[5], "solve_s": s32,
+              "f64_solve_s": s64, "pcost": stats[0], "f64_pcost": b64[6][0],
+              "pcost_rel_f64": rel4, "gap": stats[2], "relgap": stats[3],
+              "pres": stats[4], "dres": stats[5], "inaccurate": stats[6],
+              "launches": counts})
+
+    # (d) config 5 as one batch, ROUNDS5_F32 rounds, against f64
+    data = scenario_portfolio(SEED, n=N5, n_scenarios=S5)
+    cfg = SolverConfig()
+    t0 = time.perf_counter()
+    r64 = run_admm(data, cfg, None, ROUNDS5_F32)
+    s64 = time.perf_counter() - t0
+    run_admm(data, cfg, None, 1, dtype=f32)          # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with admm_rounds() as marks:
+        t0 = time.perf_counter()
+        r32 = run_admm(data, cfg, None, ROUNDS5_F32, dtype=f32)
+        wall = time.perf_counter() - t0
+    counts = read_counts()
+    rel5 = abs(r32.objective - r64.objective) / max(1.0, abs(r64.objective))
+    check(r32.inner_status_ok and r64.inner_status_ok
+          and r32.outer_iterations == len(marks) == ROUNDS5_F32
+          and rel5 <= RELAXED_GAP
+          and sum(counts.values()) == counts["chol_batched_f32"]
+          + counts["tri_pair_batched_f32"],
+          f"f32carry config 5: {r32} against f64 {r64}, launches {counts}")
+    per_round, prev = [], {n: 0 for n in counts}
+    for r, (_, cnt) in enumerate(marks):
+        chol_r = cnt["chol_batched_f32"] - prev["chol_batched_f32"]
+        per_round.append((chol_r - (2 if r == 0 else 0)) // 2)
+        prev = cnt
+    launches["c5"] = counts
+    emit({"phase": "f32carry", "run": "config5",
+          "config": f"scenario_portfolio({SEED}, n={N5}, n_scenarios={S5}), "
+                    "one batch, rho=1.0",
+          "rounds": r32.outer_iterations, "s_per_round": wall / ROUNDS5_F32,
+          "f64_s_per_round": s64 / ROUNDS5_F32, "objective": r32.objective,
+          "f64_objective": r64.objective, "objective_rel_f64": rel5,
+          "pres": r32.primal_res, "dres": r32.dual_res,
+          "f64_pres": r64.primal_res, "f64_dres": r64.dual_res,
+          "lockstep_iterations_per_round": per_round, "launches": counts})
+    check(tf32_off() == tf32, "f32carry: the f32 matmul settings changed")
+    return launches, profile
+
+
 def phase_probes():
     """The probes at their scripts' shapes and inputs: driven once with the
     counts at 0 (the launches reported), then held to their plain versions
@@ -2155,7 +2430,30 @@ def phase_probes():
     exact = np.linalg.solve(L5.astype(np.float64), b5.astype(np.float64))
     fwd_rel = float(np.abs(out["P5"].cpu().numpy() - exact).max() / np.abs(exact).max())
     check(fwd_rel < 1e-4, f"P5: relative error {fwd_rel}")
+    # probe_fwd at other (n, k), n off the 32-row blocks, bit for bit; and
+    # with zeros, a subnormal, a huge value and a NaN in b (the kernel's
+    # second pass, IEEE division), where the NaNs and zeros' signs agree too
+    rng = np.random.default_rng(5)
+    for n_, k_ in FWD_SHAPES[1:]:
+        A_ = rng.normal(size=(n_, n_))
+        L_ = np.linalg.cholesky(A_ @ A_.T + n_ * np.eye(n_)).astype(np.float32)
+        LT_ = torch.as_tensor(L_.T.copy(), device=dev)
+        b_ = torch.as_tensor(rng.normal(size=(n_, k_)).astype(np.float32),
+                             device=dev)
+        bit_equal(probes.fwd_subst(LT_, b_), probes.fwd_subst_plain(LT_, b_),
+                  f"P5 n={n_} k={k_}")
+    for val in (0.0, -0.0, 1e-40, 3e38, float("nan")):
+        b_ = bb.clone()
+        b_[5, 0] = val
+        got, want = probes.fwd_subst(LT, b_), probes.fwd_subst_plain(LT, b_)
+        torch.cuda.synchronize()
+        same = ((got.view(torch.int32) == want.view(torch.int32))
+                | (got.isnan() & want.isnan()))
+        check(bool(same.all()), f"P5 with {val} in b: not bit-equal to plain")
 
+    # the SM clock before, between and after these microsecond timings (a
+    # short kernel's time moves with it)
+    clocks = [sm_clock()]
     n = 128
     timing = {
         "probe_eft": timed(
@@ -2180,12 +2478,39 @@ def phase_probes():
             bound=bound(4 * (n * (n + 1) // 2 + n * n), chol_flops(n),
                         FP32_FLOPS_PER_S)),
     }
+    # the floor under every probe: an empty kernel, by events around a
+    # call and by device time
+    from socp_tpu_torch.ops import _build
+
+    empty = _build.kernel("probe_empty")
+
+    def launch_empty():
+        err = empty(torch.cuda.current_stream().cuda_stream)
+        check(err == 0, f"probe_empty: cudaError {err}")
+
+    clocks.append(sm_clock())
+    floor = {"call_ms": cuda_ms(launch_empty)}
+    floor["kernel_ms"], floor["kernel_ms_by"] = device_ms(launch_empty)
+    # probe_fwd against solve_triangular in turns in this call (kernel,
+    # library, library, kernel, twice), by events and by device time
+    turns = {"probe_fwd": {"call_ms": [], "kernel_ms": []},
+             "solve_triangular": {"call_ms": [], "kernel_ms": []}}
+    fwd = (lambda: probes.fwd_subst(LT, bb))
+    lib = (lambda: torch.linalg.solve_triangular(LT.mT, bb, upper=False))
+    for name, f in (("probe_fwd", fwd), ("solve_triangular", lib),
+                    ("solve_triangular", lib), ("probe_fwd", fwd)) * 2:
+        turns[name]["call_ms"].append(cuda_ms(f))
+        turns[name]["kernel_ms"].append(device_ms(f)[0])
+    clocks.append(sm_clock())
     emit({"phase": "probes", "bit_equal": True, "max_abs_err": errs,
           "P1_reconstruction": recon, "P2_exact": True, "P5_rel_err": fwd_rel,
+          "P5_shapes_bit_equal": [list(nk) for nk in FWD_SHAPES],
+          "launch_floor": floor, "P5_in_turns": turns,
+          "sm_clock_mhz": clocks,
           "launches": {k: v for k, v in launches.items() if v},
           "timing": {k: {kk: vv for kk, vv in t.items() if kk != "bound"}
                      for k, t in timing.items()}})
-    return launches, errs, timing
+    return launches, errs, timing, floor, turns
 
 
 def main():
@@ -2221,7 +2546,9 @@ def main():
     phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
     fs_launches, fs_run, fs_solve_s = phase_f32factor_single()
     phase_profile(fs_run, fs_solve_s, "config2_f32factor")
-    p_launches, p_errs, p_timing = phase_probes()
+    fc_launches, (fc_run, fc_solve_s) = phase_f32carry()
+    phase_profile(fc_run, fc_solve_s, "config3_f32carry")
+    p_launches, p_errs, p_timing, p_floor, p_turns = phase_probes()
     errs.update(s_errs)
     meta = {
         "chol_batched": ("socp_tpu_torch/csrc/chol_batched.cu",
@@ -2296,8 +2623,11 @@ def main():
             "source": f"socp_tpu_torch/csrc/{base}_batched.cu",
             "replaces": replaces,
             "launches": f_launches[b_name] + fs_launches[s_name],
-            "launches_by_phase": {"f32factor": {b_name: f_launches[b_name]},
-                                  "f32factor_single": {s_name: fs_launches[s_name]}},
+            "launches_by_phase": {
+                "f32factor": {b_name: f_launches[b_name]},
+                "f32factor_single": {s_name: fs_launches[s_name]},
+                **{f"f32carry_{run}": {kn: v[kn] for kn in (b_name, s_name)}
+                   for run, v in fc_launches.items()}},
             "max_abs_err": max(f_errs[name]),
             **numbers(t["batched"]), "at": {"B": B_MAIN, "n": N_MAIN + 2, "k": 1},
             "single": {"source": f"socp_tpu_torch/csrc/{base}_single.cu",
@@ -2315,9 +2645,15 @@ def main():
             ("probe_fwd", "socp_tpu_torch/csrc/probes.cu",
              "scripts/pallas_probe2.py:84", "P5")):
         count = "chol_single_f32" if name == "probe_chol" else name
-        rows.append({"name": name, "route": "cuda", "source": source,
-                     "replaces": replaces, "launches": p_launches[count],
-                     "max_abs_err": p_errs[err], **numbers(p_timing[name])})
+        row = {"name": name, "route": "cuda", "source": source,
+               "replaces": replaces, "launches": p_launches[count],
+               "max_abs_err": p_errs[err], **numbers(p_timing[name])}
+        if err in ("P2", "P3", "P4", "P5"):
+            # an empty launch's device time: the least any probe can take
+            row["launch_floor_kernel_ms"] = p_floor["kernel_ms"]
+        if err == "P5":
+            row["in_turns"] = p_turns
+        rows.append(row)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                  "count": torch.cuda.device_count()}})

@@ -4,7 +4,9 @@ It imports torch and numpy, never jax and nothing of `socp_tpu`.  It runs
 the single-instance solve (`solve`) and the batched lockstep solve
 (`prepare_batch`, `solve_batch_raw`, `solve_batch`) in f64 through
 hand-written CUDA kernels for the Cholesky factor and the triangular-pair
-solve, single-instance and batched (`socp_tpu_torch/csrc/`).
+solve, single-instance and batched (`socp_tpu_torch/csrc/`), or, with
+`dtype=float32` on any entry point, in the reference's f32-carries mode
+through the kernels' f32 instances.
 `SolverConfig(native_dd=True)` takes the reference's structured KKT
 assembly (kkt/structured.py).  `parallel.schur.solve_block` solves a
 block-structured SOCP (per-block factors and the Schur complement of the

@@ -20,17 +20,27 @@ form above), in f64 whatever `factor_dtype` says; the default takes the
 scaled-matrix assembly of kkt/dense.py.  `native_dd` passes through
 `prepare_batch` and `solve` unchanged.
 
-Precision: `dtype` takes None or any spelling of f64 (`resolve_dtype`).
-By default everything is f64 (`torch.float64`), iterates,
-products, factors and solves alike, and TF32 plays no part.  With
-`SolverConfig(factor_dtype="float32")` the iterates and the refinement
-residuals stay f64 while Ghat, H = Ghat'Ghat, the Cholesky factors and the
-back-solves are f32 (kkt/dense.py), as in the reference's mixed-precision
-mode; its solves end "optimal, inaccurate" near a 1e-6 gap, as the
-reference's do.  Its f32 products run on cuBLAS, so in this mode
-`torch.backends.cuda.matmul.allow_tf32 = True` (or a float32 matmul
-precision below "highest") WOULD change the result: the port sets neither
-and expects PyTorch's defaults (TF32 off).
+Precision: `dtype` (`resolve_dtype`) is the carry dtype, the dtype of
+the iterates.  None or any spelling of f64 is f64 (`torch.float64`):
+iterates, products, factors and solves alike, and TF32 plays no part.
+The reference's None means its default, f64 only where JAX's x64 is on;
+torch has no such switch, so here None is always f64.  Any spelling of
+f32 is the reference's f32-carries mode: the inputs are rounded to f32
+and the iterates, the cone sweeps, the products and (`factor_dtype=None`:
+the carry dtype) the factors and back-solves run in f32 through the f32
+kernels; `SolverConfig(refine_in_f64=True)` takes the refinement
+residual in f64 (kkt/dense.py).  Under `native_dd=True` f32 inputs are
+rounded to f32 and then solved in f64, as the reference builds its
+double-word carries from the rounded inputs.  Outputs are float64 numpy
+in every mode, as the reference's are (an f32 run's hold f32 values).
+With `SolverConfig(factor_dtype="float32")` and f64 carries the iterates
+and the refinement residuals stay f64 while Ghat, H = Ghat'Ghat, the
+Cholesky factors and the back-solves are f32 (kkt/dense.py), the
+reference's mixed-precision mode; its solves end "optimal, inaccurate"
+near a 1e-6 gap, as the reference's do.  f32 products run on cuBLAS, so
+with f32 factors or carries `torch.backends.cuda.matmul.allow_tf32 =
+True` (or a float32 matmul precision below "highest") WOULD change the
+result: the port sets neither and expects PyTorch's defaults (TF32 off).
 
 Device: every entry point takes `device`; `device=None` means `"cuda"`,
 and where CUDA is absent that raises instead of carrying on quietly on the
@@ -63,21 +73,41 @@ def resolve_device(device=None) -> torch.device:
     return torch.device(device)
 
 
+# spellings of the two carry dtypes, by name: torch's, numpy's and JAX's
+# dtypes and the strings all name themselves "float64" / "float32"
+_CARRY = {"float64": torch.float64, "float32": torch.float32}
+_NUMPY = {torch.float64: np.float64, torch.float32: np.float32}
+
+
 def resolve_dtype(dtype) -> torch.dtype:
     """The carry dtype: None or any spelling of f64 (torch.float64,
     np.float64, np.dtype("float64"), "float64", JAX's float64) is
-    torch.float64; anything else raises (f32 carries are not ported)."""
-    if dtype is None or dtype is torch.float64:
+    torch.float64, any spelling of f32 torch.float32; anything else (f16,
+    bf16, integers) raises."""
+    if dtype is None:
         return torch.float64
-    names = {str(dtype), str(getattr(dtype, "name", ""))}
-    if not isinstance(dtype, torch.dtype):
+    if isinstance(dtype, torch.dtype):
+        names = {str(dtype).removeprefix("torch.")}
+    else:
+        names = {str(dtype), str(getattr(dtype, "name", ""))}
         try:
             names.add(np.dtype(dtype).name)
         except TypeError:
             pass
-    if "float64" in names:
-        return torch.float64
-    raise ValueError(f"the port runs in float64 only, got {dtype!r}")
+    for name, carry in _CARRY.items():
+        if name in names:
+            return carry
+    raise ValueError(
+        f"the port's carries are float64 or float32, got {dtype!r}")
+
+
+def carry_dtypes(dtype, config: SolverConfig) -> tuple[torch.dtype,
+                                                       torch.dtype]:
+    """(inputs, carry): the dtype the inputs are rounded to and the dtype
+    of the iterates.  They are the same, except that `native_dd` rounds
+    f32 inputs to f32 and then carries f64 (module doc)."""
+    inputs = resolve_dtype(dtype)
+    return inputs, torch.float64 if config.native_dd else inputs
 
 
 def _resolve_config(config: SolverConfig) -> SolverConfig:
@@ -95,15 +125,25 @@ def _resolve_config(config: SolverConfig) -> SolverConfig:
     if config.factor_dtype not in driver.FACTOR_DTYPES:
         raise NotImplementedError(
             f"factor_dtype={config.factor_dtype!r}: the port factors in "
-            f"one of {sorted(map(str, driver.FACTOR_DTYPES))} (None: f64)"
+            f"one of {sorted(map(str, driver.FACTOR_DTYPES))} (None: the "
+            "carry dtype)"
         )
     if config.gondzio_correctors is None:
         config = dataclasses.replace(config, gondzio_correctors=0)
     return config
 
 
-def _put(a, dev) -> torch.Tensor:
-    return torch.as_tensor(np.ascontiguousarray(a, np.float64), device=dev)
+def _put(a, dev, dtype=torch.float64, carry=None) -> torch.Tensor:
+    """`a` on `dev`, rounded to `dtype`, in the `carry` dtype (default:
+    `dtype`)."""
+    t = torch.as_tensor(np.ascontiguousarray(a, _NUMPY[dtype]), device=dev)
+    return t if carry is None else t.to(carry)
+
+
+def _numpy(t: torch.Tensor) -> np.ndarray:
+    """A float output as float64 numpy (an f32 run's values are exact)."""
+    a = t.cpu().numpy()
+    return a.astype(np.float64) if a.dtype == np.float32 else a
 
 
 def _solution(config: SolverConfig, x, y, s, z, status, k, stats,
@@ -137,27 +177,28 @@ def solve(
 
     `warm`: optional (x, y, s, z) starting point in the ORIGINAL (unpadded)
     cone order, e.g. a previous Solution's fields after a small problem
-    change; s and z are recentered by config.warm_push."""
+    change; s and z are recentered by config.warm_push.  `dtype`: the
+    carry dtype (module doc)."""
     dev = resolve_device(device)
-    resolve_dtype(dtype)
     if verbose is not None and verbose != config.verbose:
         config = dataclasses.replace(config, verbose=verbose)
     config = _resolve_config(config)
+    inputs, carry = carry_dtypes(dtype, config)
     layout = make_layout(prob.dims, config.bucket_multiple)
     has_P = prob.P is not None
 
     def one(a):
-        return _put(a, dev)[None]
+        return _put(a, dev, inputs, carry)[None]
 
     args = (one(prob.c), one(layout.pad_rows(prob.G)),
             one(layout.pad_vec(prob.h)), one(prob.A), one(prob.b),
-            one(prob.P) if has_P else _put(np.zeros((0, 0)), dev))
+            one(prob.P) if has_P else _put(np.zeros((0, 0)), dev, carry))
     if warm is not None:
         xw, yw, sw, zw = (np.array(w, np.float64) for w in warm)
         warm = (one(xw), one(yw), one(layout.pad_vec(sw)),
                 one(layout.pad_vec(zw)))
     out = driver.solve_core(layout, config, *args, has_P=has_P, warm=warm)
-    x, y, s, z, status, k, stats, hist = (t[0].cpu().numpy() for t in out)
+    x, y, s, z, status, k, stats, hist = (_numpy(t[0]) for t in out)
     return _solution(config, x, y, layout.unpad_vec(s), layout.unpad_vec(z),
                      status, k, stats, hist)
 
@@ -177,11 +218,14 @@ def prepare_batch(
 
     `group`: the process group of a batch sharded over ranks, each rank
     preparing its own slice (parallel/batch.py); the lockstep loop runs
-    while any rank has an active instance (ipm/driver.py)."""
+    while any rank has an active instance (ipm/driver.py).
+
+    `dtype`: the carry dtype (module doc); `fn`'s outputs are tensors of
+    the carry dtype."""
     dev = resolve_device(device)
-    resolve_dtype(dtype)
     B, n = np.shape(c)
     config = _resolve_config(config)
+    inputs, carry = carry_dtypes(dtype, config)
     layout = make_layout(dims, config.bucket_multiple)
     has_P = P is not None
     if A is None:
@@ -190,7 +234,7 @@ def prepare_batch(
         P = np.zeros((0, 0))
 
     def put(a):
-        return _put(a, dev)
+        return _put(a, dev, inputs, carry)
 
     def batched(a, ndim):
         t = put(a)
@@ -223,7 +267,7 @@ def solve_batch_raw(
     pcost, dcost, gap, relgap, pres, dres, inaccurate), hist."""
     fn, args, layout = prepare_batch(c, G, h, dims, A=A, b=b, P=P,
                                      config=config, dtype=dtype, device=device)
-    x, y, s, z, status, k, stats, hist = (t.cpu().numpy() for t in fn(*args))
+    x, y, s, z, status, k, stats, hist = (_numpy(t) for t in fn(*args))
     return (x, y, layout.unpad_vec(s), layout.unpad_vec(z), status, k, stats,
             hist)
 

@@ -6,6 +6,11 @@ shape `(B, layout.m_pad)`; an SOC bucket is the view
 `u[:, off:off+size].view(B, n_blocks, q_pad)`.  Per-instance reductions
 (`lambda_min`, `max_step`) return `(B,)`.  Zero tail-padding is exact and
 preserved by every op (see layout.py).
+
+Every function is dtype-generic: it computes in its inputs' dtype (f64, or
+f32 for the reference's f32-carries mode), with Python scalars that never
+promote; the solvers pass their carry dtype to `identity` and
+`identity_scaling`.
 """
 
 from __future__ import annotations
@@ -46,6 +51,8 @@ def _jdet(ub: torch.Tensor) -> torch.Tensor:
 
 def identity(layout: ConeLayout, batch: int, dtype=torch.float64,
              device=None) -> torch.Tensor:
+    """The cone identity e in `dtype`: the solvers pass their carry
+    dtype."""
     pieces = [torch.ones((batch, layout.l), dtype=dtype, device=device)]
     for b in layout.buckets:
         e = torch.zeros((batch, b.n_blocks, b.q_pad), dtype=dtype,
@@ -129,7 +136,10 @@ def max_step(layout: ConeLayout, u: torch.Tensor, du: torch.Tensor) -> torch.Ten
     dim-1 SOC block and for du on a boundary ray) may round to a D just
     below 0.  The reference then drops the root and returns inf, a step
     that leaves the cone; here a D within the rounding error of
-    b*b - 4ac counts as 0 (ROADMAP.md, queue 3)."""
+    b*b - 4ac counts as 0 (ROADMAP.md, queue 3).  The margin is 8 eps of
+    u's own dtype, so in f32 it scales with f32's rounding as the
+    reference's f32 arithmetic does: the rule is the same relative test in
+    both dtypes."""
     eps = torch.finfo(u.dtype).eps
     alphas = []
     if layout.l:
@@ -191,7 +201,8 @@ def nt_scale(layout: ConeLayout, s: torch.Tensor, z: torch.Tensor) -> Scaling:
 
 def identity_scaling(layout: ConeLayout, batch: int, dtype=torch.float64,
                      device=None) -> Scaling:
-    """W = I (initialization); lam is unused there."""
+    """W = I (initialization) in `dtype` (the solvers pass their carry
+    dtype); lam is unused there."""
     etas, vs = [], []
     for b in layout.buckets:
         etas.append(torch.ones((batch, b.n_blocks), dtype=dtype, device=device))

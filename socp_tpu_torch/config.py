@@ -1,34 +1,52 @@
 """Solver configuration: the fields and defaults of `socp_tpu/config.py`.
 
 The port keeps every field so that a config written for the reference is a
-config for the port.  Its carries are f64 (the card has native FP64), so
-the fields that choose among the reference's TPU precision and kernel
-routes map onto two paths: f64 iterates with either the f64 Cholesky and
-triangular-pair kernels or their f32 instances (single-instance for
-`solve`, batched for the batched entry points):
+config for the port.  The carry dtype (the iterates') is the entry point's
+`dtype`: f64 by default (the card has native FP64), or f32, the
+reference's f32-carries mode (api.py).  The fields that choose among the
+reference's TPU precision and kernel routes map onto the f64 and f32
+instances of the Cholesky and triangular-pair kernels (single-instance for
+`solve`, batched for the batched entry points).  The factor dtype, by
+`factor_dtype` and carry dtype:
 
-  * `factor_dtype=None` or `"float64"`              -> the f64 path;
-  * `native_dd` (dd32 everywhere on the TPU)        -> the f64 path with
+  factor_dtype    f64 carries                 f32 carries
+  None            f64                         f32 (the carry dtype, as
+                                              socp_tpu/kkt/dense.py:117)
+  "float32"       f32 factor and back-solves  f32
+                  under f64 refinement (the
+                  mixed-precision mode; ends
+                  "optimal, inaccurate" near
+                  a 1e-6 gap, as the
+                  reference does)
+  "float64"       f64                         f64 (the reference casts
+                                              Ghat and the rhs up to f64)
+  "dd32"          f64                         f64: the reference's dd32
+                                              factor is f64-grade
+                                              (kkt/dd_dense.py builds it
+                                              from the f32 Ghat and
+                                              returns f64)
+
+  * `native_dd` (dd32 everywhere on the TPU)        -> f64 carries with
     the reference's structured KKT assembly (kkt/structured.py: ConstGram,
     W^-2 helpers, G dx reuse), whatever `factor_dtype` says: the reference
     ignores `factor_dtype` under `native_dd`, and api.py resolves it to
-    None;
-  * `factor_dtype="dd32"` (dd32 factor)             -> the f64 path;
-  * `factor_dtype="float32"` (without `native_dd`)   -> the f32 factor and
-    back-solves under f64 refinement (kkt/dense.py), the reference's
-    mixed-precision mode; it ends "optimal, inaccurate" near a 1e-6 gap,
-    as the reference does;
+    None.  f32 inputs are rounded to f32 first, as the reference builds
+    its dd carries from the rounded inputs;
   * `use_pallas` (VMEM-resident Pallas kernels)     -> the kernels, always;
   * `invert_factor` (explicit triangular inverse)   -> the kernels, always;
-  * `refine_in_f64`                                  -> no-op (the carries,
-    and so the residuals, are already f64).
+  * `refine_in_f64`                                  -> the refinement
+    residual's products and sums in f64 over f64 copies of P, A and G
+    (kkt/dense.py), the correction cast to the carry dtype; a no-op under
+    f64 carries, where the residual is already f64.
 
 Any other `factor_dtype` raises in `api`.  The block-Schur solve
 (parallel/schur.py) resolves the fields as the reference's block path
-does: it factors in f64 whatever `factor_dtype` says and ignores
-`native_dd`; `ring_schur` reduces its Schur complement by
-`collectives.ring_allreduce` when its blocks are sharded over a mesh, and
-changes nothing on one device.
+does: it factors in the carry dtype, except that "dd32" factors in f64
+(the reference's dd32 block factor is f64-grade; under f32 carries the
+reference's own block path cannot run it), and ignores `native_dd`;
+`ring_schur` reduces its Schur complement by `collectives.ring_allreduce`
+when its blocks are sharded over a mesh, and changes nothing on one
+device.
 """
 
 from __future__ import annotations

@@ -20,8 +20,15 @@ and is discarded by the select.  Per-lane conditional arithmetic is
 Kernel launches per body (p = 0): one Cholesky and three triangular-pair
 solves (affine solve unrefined, combined solve + one refinement solve);
 the W = I initialization adds one Cholesky and four pair solves.  They are
-the f64 kernels, or the f32 ones under `factor_dtype="float32"` (the f32
-factor under f64 refinement, kkt/dense.py); the carries are f64 either way.
+the kernels of the factor dtype (`factor_dtype`, below): the f64 ones, or
+the f32 ones under `factor_dtype="float32"` (the f32 factor under f64
+refinement, kkt/dense.py) and for f32 carries.
+
+Precision: every tensor the loop creates takes the carry dtype, c's: f64,
+or f32 in the reference's f32-carries mode (api.py).  Under
+`refine_in_f64` the refinement residual is taken in f64 over f64 copies
+of P, A and G made once a solve (kkt/dense.py); with f64 carries that is
+the carry dtype and changes nothing.
 
 KKT route: by default kkt/dense.py, the port of the reference's
 `ipm/driver.py` + `kkt/dense.py` (Ghat = W^-1 G every iteration).  Under
@@ -45,11 +52,17 @@ from socp_tpu_torch.kkt.dense import _dot, _mtv, _mv
 from socp_tpu_torch.parallel import collectives
 from socp_tpu_torch.solution import Status
 
-# SolverConfig.factor_dtype -> the dtype of the KKT factor and back-solves.
-# "dd32" (the reference's double-word f32 factor) and "float64" map onto
-# the f64 path, as None does (config.py).
-FACTOR_DTYPES = {None: torch.float64, "dd32": torch.float64,
+# SolverConfig.factor_dtype -> the dtype of the KKT factor and back-solves;
+# None is the carry dtype (socp_tpu/kkt/dense.py:117).  "dd32" (the
+# reference's double-word f32 factor, f64-grade) and "float64" are f64
+# under either carry dtype (config.py).
+FACTOR_DTYPES = {None: None, "dd32": torch.float64,
                  "float64": torch.float64, "float32": torch.float32}
+
+
+def factor_dtype(cfg: SolverConfig, carry: torch.dtype) -> torch.dtype:
+    """The dtype of the KKT factor and back-solves under `carry` iterates."""
+    return FACTOR_DTYPES[cfg.factor_dtype] or carry
 
 
 class IPMState(NamedTuple):
@@ -94,7 +107,8 @@ def solve_core(
     warm: tuple | None = None,
     group=None,
 ):
-    """Solve B padded SOCPs in lockstep.  All tensors on one device, f64.
+    """Solve B padded SOCPs in lockstep.  All tensors on one device, in
+    the carry dtype (f64 or f32).
 
     `warm`: optional (x, y, s, z) per-instance padded start — skips the W = I
     init solves and recenters s, z by cfg.warm_push.
@@ -112,7 +126,7 @@ def solve_core(
     p = A.shape[1]
     m = layout.m_pad
     dtype, device = c.dtype, c.device
-    fdt = FACTOR_DTYPES[cfg.factor_dtype]
+    fdt = factor_dtype(cfg, dtype)
     nu = float(layout.degree)
     e = cops.identity(layout, B, dtype, device)
     Pmat = P if has_P else None
@@ -163,13 +177,19 @@ def solve_core(
         return dense.factor(layout, scaling, Paug, A, G, cfg.delta_reg,
                             factor_dtype=fdt)
 
+    # the refinement residual's operands in its dtype, once a solve
+    hi_ops = (None if cfg.native_dd else
+              dense.residual_operands(Pmat, A, G, cfg.refine_in_f64))
+
     def refined(kkt, bx, by, bz, steps=None):
-        kkt_mod = structured if cfg.native_dd else dense
-        return kkt_mod.solve_refined(
-            layout, kkt, Pmat, A, G, bx, by, bz,
-            refine_steps=cfg.refine_steps if steps is None else steps,
-            aug_rho=aug_rho,
-        )
+        steps = cfg.refine_steps if steps is None else steps
+        if cfg.native_dd:
+            return structured.solve_refined(
+                layout, kkt, Pmat, A, G, bx, by, bz, refine_steps=steps,
+                aug_rho=aug_rho)
+        return dense.solve_refined(
+            layout, kkt, Pmat, A, G, bx, by, bz, refine_steps=steps,
+            aug_rho=aug_rho, refine_in_f64=cfg.refine_in_f64, hi_ops=hi_ops)
 
     def hz_by(z, y):
         return _dot(h, z) + (_dot(y, b) if p else 0.0)

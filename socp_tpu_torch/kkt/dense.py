@@ -20,18 +20,26 @@ triangular-pair router (`socp_tpu_torch.ops.chol.cholesky` /
 single-instance kernels, a larger batch the batched ones.  H's product
 Ghat'Ghat is a plain batched matmul, as the reference leaves it to XLA.
 
-Precision.  By default all arithmetic is f64.  `factor(...,
-factor_dtype=torch.float32)` is the reference's mixed-precision mode
+Precision.  All arithmetic runs in the carry dtype (the iterates', f64 or
+f32) by default.  `factor(..., factor_dtype=torch.float32)` under f64
+carries is the reference's mixed-precision mode
 (`SolverConfig(factor_dtype="float32")`, the dsgesv scheme): Ghat = W^-1 G
 is formed in f64 and cast to f32, H = Ghat'Ghat + Paug, the equilibrated
 Cholesky factors (whose delta floor becomes 32 eps_f32, about 3.8e-6) and
 every back-solve run in f32, through the f32 kernels; `solve` casts its
 right-hand sides to f32, and `solve_refined` casts each solve's result back
 to the carry dtype (f64) before it adds it, and keeps the refinement
-residual, with the f64 `scaling`, in f64.  The f32 products (Ghat'Ghat,
-Ghat' bhz, Ghat dx) are cuBLAS SGEMM / SGEMV on the card: they are in full
-f32 only while `torch.backends.cuda.matmul.allow_tf32` is False (PyTorch's
-default), which this module does not change.
+residual, with the f64 `scaling`, in f64.  Under f32 carries (the
+reference's f32-carries mode) everything is f32, and an f64 factor
+(`factor_dtype="float64"` or `"dd32"`) casts Ghat and the right-hand sides
+up.  `solve_refined(..., refine_in_f64=True)` takes the residual's products
+and sums in f64 over f64 copies of P, A and G (`residual_operands`) and
+casts the correction to the carry dtype, as the reference does
+(socp_tpu/kkt/dense.py:207-230); the W'W dz product stays in the carry
+dtype there too.  The f32 products (Ghat'Ghat, Ghat' bhz, Ghat dx, and
+every product of an f32 carry) are cuBLAS SGEMM / SGEMV on the card: they
+are in full f32 only while `torch.backends.cuda.matmul.allow_tf32` is False
+(PyTorch's default), which this module does not change.
 """
 
 from __future__ import annotations
@@ -188,6 +196,15 @@ def solve_condensed(L_H: EqChol, L_S: EqChol, A: torch.Tensor,
     return dx, dy
 
 
+def residual_operands(P: torch.Tensor | None, A: torch.Tensor,
+                      G: torch.Tensor, refine_in_f64: bool = False):
+    """(P, A, G) in the refinement residual's dtype: f64 under
+    `refine_in_f64`, else G's (the carry dtype).  Tensors already in it are
+    returned as they are, so f64 carries copy nothing."""
+    hi = torch.float64 if refine_in_f64 else G.dtype
+    return tuple(None if t is None else t.to(hi) for t in (P, A, G))
+
+
 def solve_refined(
     layout: ConeLayout,
     kkt: DenseKKT,
@@ -199,13 +216,17 @@ def solve_refined(
     bz: torch.Tensor,
     refine_steps: int = 0,
     aug_rho: float = 0.0,
+    refine_in_f64: bool = False,
+    hi_ops: tuple | None = None,
 ):
     """KKT solve + iterative refinement on the full 3x3 residual.  `P` is
     the ORIGINAL quadratic term (None for a pure SOCP).  Returns
     (dx, dy, dz, quality) with quality the (B,) relative residual before
     the last correction (0 without refinement).  The solves' results are
-    cast to the carry dtype (bx's) before they are added; the residual is
-    computed in the carry dtype."""
+    cast to the carry dtype (bx's) before they are added.  The residual is
+    computed in the carry dtype, or in f64 under `refine_in_f64` (module
+    doc); `hi_ops` is `residual_operands(P, A, G, refine_in_f64)`, made
+    here when not given."""
     carry = bx.dtype
 
     def solve_carry(rx, ry, rz):
@@ -217,15 +238,20 @@ def solve_refined(
     if refine_steps <= 0:
         return dx, dy, dz, quality
     sc = kkt.scaling
+    Ph, Ah, Gh = hi_ops or residual_operands(P, A, G, refine_in_f64)
+    hi = Gh.dtype
+    bxh, byh, bzh = bx.to(hi), by.to(hi), bz.to(hi)
     rhs_norm = torch.sqrt(_dot(bx, bx) + _dot(by, by) + _dot(bz, bz)) + 1.0
     for _ in range(refine_steps):
-        rx = bx - (_mtv(A, dy) + _mtv(G, dz))
+        dxh, dyh, dzh = dx.to(hi), dy.to(hi), dz.to(hi)
+        rx = bxh - (_mtv(Ah, dyh) + _mtv(Gh, dzh))
         if P is not None:
-            rx = rx - _mv(P, dx)
-        ry = by - _mv(A, dx)
-        WWdz = cops.apply_W(layout, sc, cops.apply_W(layout, sc, dz))
-        rz = bz - (_mv(G, dx) - WWdz)
-        quality = torch.sqrt(_dot(rx, rx) + _dot(ry, ry) + _dot(rz, rz)) / rhs_norm
+            rx = rx - _mv(Ph, dxh)
+        ry = byh - _mv(Ah, dxh)
+        WWdz = cops.apply_W(layout, sc, cops.apply_W(layout, sc, dz)).to(hi)
+        rz = bzh - (_mv(Gh, dxh) - WWdz)
+        quality = (torch.sqrt(_dot(rx, rx) + _dot(ry, ry) + _dot(rz, rz))
+                   .to(carry) / rhs_norm)
         ex, ey, ez = solve_carry(rx, ry, rz)
         dx = dx + ex
         dy = dy + ey

@@ -48,6 +48,7 @@ KERNELS.update({
     "probe_read": ("probes", (_P, _P, _I, _I, _P)),
     "probe_write": ("probes", (_P, _P, _I, _I, _P)),
     "probe_fwd": ("probes", (_P, _P, _P, _I, _I, _P)),
+    "probe_empty": ("probes", (_P,)),
 })
 # layout queries: what a kernel's source alone knows, asked by its wrapper
 QUERIES = {

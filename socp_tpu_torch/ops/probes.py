@@ -8,7 +8,8 @@
   row_reverse(M)     -> M's rows in reverse order (port of `_write_kernel`,
                         P4)
   fwd_subst(LT, b)   -> x with L x = b, reading rows of LT = L' (port of
-                        `_fwd_kernel`, P5)
+                        `_fwd_kernel`, P5); n up to FWD_MAX_N (512, the
+                        kernel's 32 lanes x 16 registers), any k
 
 P1 (`_chol_kernel`, an f32 Cholesky of a (128, 128) matrix) is the same
 function as `ops.chol.chol_single` on an f32 matrix and has no wrapper here.
@@ -31,6 +32,7 @@ import torch
 launches = {"probe_eft": 0, "probe_read": 0, "probe_write": 0, "probe_fwd": 0}
 
 SPLIT = 4097.0   # Dekker's split for f32: 2^12 + 1
+FWD_MAX_N = 512   # fwd_subst's largest n (csrc/probes.cu kFwdMaxN)
 
 
 def eft_plain(a: torch.Tensor, b: torch.Tensor):
@@ -125,6 +127,9 @@ def fwd_subst(LT: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if LT.shape != (n, n):
         raise ValueError(
             f"fwd_subst: shapes {tuple(LT.shape)} / {tuple(b.shape)}")
+    if not 1 <= n <= FWD_MAX_N:
+        raise ValueError(f"fwd_subst: n = {n} is outside the kernel's "
+                         f"1 .. {FWD_MAX_N} rows, on every device")
     if LT.device.type == "cpu":
         return fwd_subst_plain(LT, b)
     x = torch.empty_like(b)

@@ -55,6 +55,13 @@ Config is resolved as `api._resolve_config` resolves it for the other
 entry points (Gondzio None -> 0; `factor_dtype="dd32"` is the f64 path;
 `native_dd=True` takes kkt/structured.py).
 
+Precision: `dtype` is the carry dtype, f64 by default.  `dtype=float32`
+is the counterpart of the reference's run with JAX's x64 off
+(socp_tpu/parallel/admm.py:228): the data are rounded to f32 and the inner
+solves, the consensus step and the duals run in f32 (under `native_dd` the
+inner solves take the rounded data in f64, as in api.py).  The results are
+float64 numpy.
+
 Checkpoint/resume: `checkpoint_every` snapshots (w_bar, u, rho, round and
 the warm iterates) in the reference's npz format (utils/checkpoint.py);
 `resume_from` restarts a run from such a snapshot, the reference's too.
@@ -72,7 +79,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from socp_tpu_torch.api import _put, _resolve_config, resolve_device, resolve_dtype
+from socp_tpu_torch.api import (_numpy, _put, _resolve_config, carry_dtypes,
+                                resolve_device)
 from socp_tpu_torch.cones.layout import ConeLayout, make_layout
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
 from socp_tpu_torch.ipm import driver
@@ -187,18 +195,18 @@ def admm_consensus(
     whole result.
 
     `device=None` means "cuda" and raises without CUDA (`device="cpu"`
-    runs the kernels' plain versions); `dtype` takes any spelling of f64
-    (`api.resolve_dtype`)."""
+    runs the kernels' plain versions); `dtype`: the carry dtype, any
+    spelling of f64 or f32 (`api.resolve_dtype`; module doc)."""
     if checkpoint_every and not checkpoint_path:
         raise ValueError(
             "checkpoint_every > 0 requires checkpoint_path — without it the"
             " requested snapshots would be silently skipped"
         )
     dev = resolve_device(device)
-    resolve_dtype(dtype)
     S, n = c.shape
     nc = n_consensus
     config = _resolve_config(config)
+    inputs, carry = carry_dtypes(dtype, config)
     layout = make_layout(dims, config.bucket_multiple)
     batch_A = A is not None and np.ndim(A) == 3
     if A is None:
@@ -230,11 +238,14 @@ def admm_consensus(
     Gp = layout.pad_rows(np.asarray(G[own], np.float64))
     hp = layout.pad_vec(np.asarray(h[own], np.float64))
     c_own = c[own]
-    chunks = [tuple(_put(a[sl], dev) for a in (c_own, Gp, hp))
-              + ((_put(A[own][sl], dev), _put(b[own][sl], dev)) if batch_A
-                 else (_put(A, dev), _put(b, dev)))
+    def put(a):
+        return _put(a, dev, inputs, carry)
+
+    chunks = [tuple(put(a[sl]) for a in (c_own, Gp, hp))
+              + ((put(A[own][sl]), put(b[own][sl])) if batch_A
+                 else (put(A), put(b)))
               for sl in spans]
-    E = _put((np.arange(n) < nc).astype(np.float64), dev)
+    E = put((np.arange(n) < nc).astype(np.float64))
 
     # ---- initial state (fresh or resumed)
     it0 = 0
@@ -242,8 +253,8 @@ def admm_consensus(
     if resume_from is not None:
         ck = (SolverCheckpoint.load(resume_from)
               if isinstance(resume_from, str) else resume_from)
-        w_bar = _put(ck.x, dev)
-        u = _put(ck.y[own], dev)
+        w_bar = put(ck.x)
+        u = put(ck.y[own])
         rho = float(ck.meta.get("rho", rho))
         it0 = int(ck.iteration)
         if it0 >= outer_iters:
@@ -252,11 +263,11 @@ def admm_consensus(
                 " — nothing to resume; raise outer_iters or start fresh"
             )
         if warm_start and "warm_x" in ck.meta:
-            warm = [tuple(_put(ck.meta[k][own][sl], dev) for k in _WARM_KEYS)
+            warm = [tuple(put(ck.meta[k][own][sl]) for k in _WARM_KEYS)
                     for sl in spans]
     else:
-        w_bar = torch.zeros(nc, dtype=torch.float64, device=dev)
-        u = torch.zeros((Sl, nc), dtype=torch.float64, device=dev)
+        w_bar = torch.zeros(nc, dtype=carry, device=dev)
+        u = torch.zeros((Sl, nc), dtype=carry, device=dev)
 
     pres = dres = np.inf
     ok = True
@@ -264,7 +275,7 @@ def admm_consensus(
     rounds = 0
     for it in range(it0, outer_iters):
         rounds += 1
-        rho_d = torch.tensor(rho, dtype=torch.float64, device=dev)
+        rho_d = torch.tensor(rho, dtype=carry, device=dev)
         xs, oks, warm_next = [], [], []
         for i, (sl, data) in enumerate(zip(spans, chunks)):
             x_i, ok_i, wn = _inner(layout, config, *data, E, w_bar, u[sl],
@@ -313,9 +324,8 @@ def admm_consensus(
         if converged:
             break
 
-    x_np = (np.zeros((S, n)) if xs is None
-            else whole(torch.cat(xs)).cpu().numpy())
-    w_np = w_bar.cpu().numpy()
+    x_np = np.zeros((S, n)) if xs is None else _numpy(whole(torch.cat(xs)))
+    w_np = _numpy(w_bar)
     x_cons = x_np.copy()
     x_cons[:, :nc] = w_np
     objective = float(np.mean(np.sum(c * x_cons, axis=1)))

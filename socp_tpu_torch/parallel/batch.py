@@ -63,6 +63,6 @@ def solve_batch_sharded(
         group=group)
     out = [coll.all_gather(t, group) for t in fn(*args)]
     x, y, s, z, status, k, stats, hist = (
-        t.flatten(0, 1).cpu().numpy() for t in out)
+        api._numpy(t.flatten(0, 1)) for t in out)
     return (x, y, layout.unpad_vec(s), layout.unpad_vec(z), status, k, stats,
             hist)

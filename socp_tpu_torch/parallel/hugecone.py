@@ -37,7 +37,9 @@ a mesh nothing is padded.
 Precision: the reference runs every carry, Gram and factor in double-word
 f32 (dd32) because the TPU has no fast f64; the card has native FP64, so
 the port runs all of it in f64.  `factor_dtype` and `native_dd` have no
-effect here, as in the reference, which never reads them.
+effect here, as in the reference, which never reads them.  f32 inputs
+(`dtype=float32`) are rounded to f32 and then solved in f64: the
+reference's dd carries are built from the rounded inputs.
 
 One deliberate difference (ROADMAP.md, queue 3): the reference's
 `max_step` drops the double root of a dim-1 SOC block when the rounded
@@ -685,9 +687,12 @@ def prepare_huge(
     (module doc); every rank passes the whole problem, places only its
     rows, and gets the whole result from `assemble`.  `device=None` means
     "cuda" (it raises where CUDA is absent); `device="cpu"` runs the
-    kernels' plain versions.  `dtype` takes None or any spelling of f64."""
+    kernels' plain versions.  `dtype` takes None or any spelling of f64,
+    or of f32: f32 inputs are rounded to f32 and then solved in f64, as
+    the reference's `to_dd` builds its carries from the rounded inputs
+    (socp_tpu/parallel/hugecone.py:93-94)."""
     dev = resolve_device(device)
-    resolve_dtype(dtype)
+    inputs = resolve_dtype(dtype)
     config = _resolve_config(config)
     qs = tuple(int(q) for q in qs)
     m, n = np.shape(G)
@@ -713,7 +718,7 @@ def prepare_huge(
     # padding orthant rows with h = 1 > 0 keeps them strictly feasible
     h_o, h_H, h_t = _split(np.asarray(h, np.float64), l, qs, t_max, l_pad, 1.0)
     lo, to = l_pad // ndev, t_max // ndev          # this rank's rows
-    args = tuple(_put(a, dev) for a in
+    args = tuple(_put(a, dev, inputs, torch.float64) for a in
                  (c, G_o[r * lo:(r + 1) * lo], G_H,
                   G_t[:, r * to:(r + 1) * to], h_o[r * lo:(r + 1) * lo], h_H,
                   h_t[:, r * to:(r + 1) * to], A_h, b_h))

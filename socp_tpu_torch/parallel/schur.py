@@ -46,11 +46,14 @@ iteration, on its condition (a replicated value: no collective of its
 own), as the batched driver's does.
 
 Config, as the reference's block path resolves it off the TPU:
-`gondzio_correctors=None` is 0.  `factor_dtype` is ignored: the
-reference's "dd32" block factor emulates f64 in double-word f32, which
-the card has natively, and its block path factors in f64 for any other
-value (there is no f32 block factor).  `native_dd` is ignored too, as the
-reference's block path never reads it.
+`gondzio_correctors=None` is 0.  The blocks factor in the carry dtype
+(`dtype`: f64, or f32 for the reference's f32-carries mode) whatever
+`factor_dtype` says, except "dd32": the reference's dd32 block factor
+emulates f64 in double-word f32, which the card has natively, so it
+factors in f64 (under f32 carries the reference's own block path cannot
+run it: its f64 results change the loop's carry types), with Ghat and the
+right-hand sides cast up and the solves cast back to the carry dtype.
+`native_dd` is ignored, as the reference's block path never reads it.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from socp_tpu_torch.api import _put, resolve_device, resolve_dtype
+from socp_tpu_torch.api import _numpy, _put, resolve_device, resolve_dtype
 from socp_tpu_torch.cones import ops as cops
 from socp_tpu_torch.cones.layout import ConeLayout, make_layout
 from socp_tpu_torch.config import DEFAULT_CONFIG, SolverConfig
@@ -133,6 +136,11 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
     `K_total` the block count over all ranks.  Returns (x, y, s, z,
     status, k, stats, hist) as tensors, x, s and z this rank's blocks."""
     dtype, device = c.dtype, c.device
+    # the factor dtype (module doc); A and P in it once a solve (the
+    # tensors themselves when it is the carry dtype)
+    fdt = torch.float64 if cfg.factor_dtype == "dd32" else dtype
+    A_f = A.to(fdt)
+    Pq_f = Pq.to(fdt) if has_P else None
     K, nb = c.shape
     p = b.shape[0]
     m = layout.m_pad
@@ -182,25 +190,28 @@ def _core(layout: ConeLayout, cfg: SolverConfig, has_P: bool, c, G, h, A, b,
         return 0.5 * psum(torch.sum(x * _mv(Pq, x)))
 
     def factor(scaling):
-        Ghat = cops.scale_rows_Winv(layout, scaling, G)
+        Ghat = cops.scale_rows_Winv(layout, scaling, G).to(fdt)
         H = Ghat.transpose(1, 2) @ Ghat
         if has_P:
-            H = H + Pq
+            H = H + Pq_f
         LH = _eq_chol(H, cfg.delta_reg)
-        HinvAT = LH.solve(A.transpose(1, 2))                 # (K, nb, p)
-        S = schur_reduce(torch.einsum("kpn,knq->pq", A, HinvAT))
+        HinvAT = LH.solve(A_f.transpose(1, 2))               # (K, nb, p)
+        S = schur_reduce(torch.einsum("kpn,knq->pq", A_f, HinvAT))
         LS = _eq_chol(S[None], cfg.delta_reg)
         return Factored(LH=LH, LS=LS, Ghat=Ghat, scaling=scaling)
 
     def kkt_solve_once(f: Factored, bx, by, bz):
-        """bx (K, nb), by (p,), bz (K, m_pad)."""
-        bhz = cops.apply_Winv(layout, f.scaling, bz)
-        btx = bx + _mtv(f.Ghat, bhz)
+        """bx (K, nb), by (p,), bz (K, m_pad), in the carry dtype; the
+        solves run in the factor dtype."""
+        bhz = cops.apply_Winv(layout, f.scaling, bz).to(fdt)
+        btx = bx.to(fdt) + _mtv(f.Ghat, bhz)
         t = f.LH.solve(btx)
-        dy = f.LS.solve((psum(A_sum(t)) - by)[None])[0]
-        dx = f.LH.solve(btx - A_T(dy))
-        dz = cops.apply_Winv(layout, f.scaling, _mv(f.Ghat, dx) - bhz)
-        return dx, dy, dz
+        rhs_S = psum(torch.einsum("kpn,kn->p", A_f, t)) - by.to(fdt)
+        dy = f.LS.solve(rhs_S[None])[0]
+        dx = f.LH.solve(btx - torch.einsum("kpn,p->kn", A_f, dy))
+        dz = cops.apply_Winv(layout, f.scaling,
+                             (_mv(f.Ghat, dx) - bhz).to(dtype))
+        return dx.to(dtype), dy.to(dtype), dz
 
     def kkt_solve(f: Factored, bx, by, bz):
         """Solve + iterative refinement on the block 3x3 residual.  Returns
@@ -464,10 +475,12 @@ def solve_block(
     config.collect_history the per-iteration table is appended as an 8th
     element (k x 6: pcost, dcost, gap, pres, dres, step).  `device=None`
     means "cuda" (it raises where CUDA is absent); `device="cpu"` runs the
-    kernels' plain versions.  `dtype` takes None or any spelling of f64.
+    kernels' plain versions.  `dtype` is the carry dtype: None or any
+    spelling of f64, or of f32 (the reference's f32-carries mode; the
+    inputs are rounded to f32).  The outputs are float64 numpy.
     """
     dev = resolve_device(device)
-    resolve_dtype(dtype)
+    dt = resolve_dtype(dtype)
     if config.gondzio_correctors is None:
         config = dataclasses.replace(config, gondzio_correctors=0)
     dims = ConeDims(prob.block_dims.l, tuple(prob.block_dims.qs))
@@ -484,17 +497,17 @@ def solve_block(
 
     out = _core(
         layout, config, has_P,
-        _put(prob.c[sl], dev),
-        _put(layout.pad_rows(np.asarray(prob.G[sl], np.float64)), dev),
-        _put(layout.pad_vec(np.asarray(prob.h[sl], np.float64)), dev),
-        _put(prob.A[sl], dev), _put(prob.b, dev),
-        _put(prob.P[sl], dev) if has_P else None,
+        _put(prob.c[sl], dev, dt),
+        _put(layout.pad_rows(np.asarray(prob.G[sl], np.float64)), dev, dt),
+        _put(layout.pad_vec(np.asarray(prob.h[sl], np.float64)), dev, dt),
+        _put(prob.A[sl], dev, dt), _put(prob.b, dev, dt),
+        _put(prob.P[sl], dev, dt) if has_P else None,
         group=group, K_total=K,
     )
     if group is not None:          # x, s, z: every rank's blocks
         out = tuple(coll.all_gather(t, group).flatten(0, 1) if i in (0, 2, 3)
                     else t for i, t in enumerate(out))
-    x, y, s, z, status, k, stats, hist = (t.cpu().numpy() for t in out)
+    x, y, s, z, status, k, stats, hist = (_numpy(t) for t in out)
     res = (x, y, layout.unpad_vec(s), layout.unpad_vec(z), Status(int(status)),
            int(k), stats)
     if config.collect_history:

@@ -582,6 +582,84 @@ def test_card_f32factor_solve_matches_reference(card):
     assert np.all(np.abs(out[6][:, 0] - rp) <= 5e-5 * np.maximum(1.0, np.abs(rp)))
 
 
+@pytest.mark.parametrize("n,k", [(128, 1), (128, 4), (100, 1), (100, 4),
+                                 (33, 1), (33, 4)])
+def test_probe_fwd_bit_equal_to_plain(card, n, k):
+    """The redesigned probe_fwd (a warp a column, 32-row blocks): at P5's
+    (128, 128) and at orders off the blocks, and with a zero, a negative
+    zero, a subnormal, a huge value and a NaN in b (the kernel's IEEE second
+    pass), where NaNs and the signs of zeros agree too."""
+    rng = np.random.default_rng(n + k)
+    A = rng.normal(size=(n, n))
+    L = np.linalg.cholesky(A @ A.T + n * np.eye(n)).astype(np.float32)
+    LT = torch.as_tensor(L.T.copy(), device=card)
+    b = torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32), device=card)
+    before = probes.launches["probe_fwd"]
+    assert torch.equal(probes.fwd_subst(LT, b), probes.fwd_subst_plain(LT, b))
+    assert probes.launches["probe_fwd"] == before + 1
+    for val in (0.0, -0.0, 1e-40, 3e38, float("nan")):
+        bv = b.clone()
+        bv[n // 3, k - 1] = val
+        got, want = probes.fwd_subst(LT, bv), probes.fwd_subst_plain(LT, bv)
+        same = ((got.view(torch.int32) == want.view(torch.int32))
+                | (got.isnan() & want.isnan()))
+        assert bool(same.all()), val
+    with pytest.raises(ValueError, match="outside the kernel's"):
+        probes.fwd_subst(torch.eye(513, device=card),
+                         torch.ones(513, 1, device=card))
+
+
+F32_COUNTS = ("chol_launches", "tri_pair_launches", "chol_single_launches",
+              "tri_pair_single_launches", "chol_launches_f32",
+              "tri_pair_launches_f32", "chol_single_launches_f32",
+              "tri_pair_single_launches_f32")
+
+
+def _f32_hold(card_out, cpu_out):
+    """(status, pcost) of the card against the CPU's plain path: the same
+    status, pcost within 5e-5 relative (iterations and the inaccurate flag
+    may differ with the order of the f32 sums)."""
+    assert card_out[0] == cpu_out[0]
+    assert abs(card_out[1] - cpu_out[1]) <= 5e-5 * max(1.0, abs(cpu_out[1]))
+
+
+@pytest.mark.parametrize("case", ["robust_ls", "with_A"])
+def test_card_f32carry_batch_matches_cpu(card, case):
+    """dtype=float32 through solve_batch_raw on the card: f32 carries and
+    only the f32 batched kernels, held to the same call on the CPU's
+    plain path at the f32 tolerances."""
+    data = dict(_cases())[case]
+    before = [getattr(chol, c) for c in F32_COUNTS]
+    out = socp_tpu_torch.solve_batch_raw(**data, dtype=torch.float32)
+    d = dict(zip(F32_COUNTS, (getattr(chol, c) - v
+                              for c, v in zip(F32_COUNTS, before))))
+    assert d["chol_launches_f32"] >= 2 and d["tri_pair_launches_f32"] >= 4
+    assert sum(d.values()) == d["chol_launches_f32"] + d["tri_pair_launches_f32"]
+    cpu = socp_tpu_torch.solve_batch_raw(**data, dtype=torch.float32,
+                                         device="cpu")
+    for i in range(len(out[4])):
+        _f32_hold((out[4][i], out[6][i, 0]), (cpu[4][i], cpu[6][i, 0]))
+    assert np.array_equal(out[0], out[0].astype(np.float32))
+
+
+def test_card_f32carry_solve_matches_cpu(card):
+    """solve at dtype=float32 on the card: only the single f32 kernels,
+    held to the CPU's plain path as above."""
+    from socp_tpu_torch.carry import problem_from_reference
+
+    prob = problem_from_reference(random_socp(2, n=30, l=8, qs=(4, 6, 10),
+                                              p=5)[0])
+    before = [getattr(chol, c) for c in F32_COUNTS]
+    sol = socp_tpu_torch.solve(prob, dtype=np.float32)
+    d = dict(zip(F32_COUNTS, (getattr(chol, c) - v
+                              for c, v in zip(F32_COUNTS, before))))
+    assert d["chol_single_launches_f32"] >= 4
+    assert sum(d.values()) == (d["chol_single_launches_f32"]
+                               + d["tri_pair_single_launches_f32"])
+    cpu = socp_tpu_torch.solve(prob, dtype=np.float32, device="cpu")
+    _f32_hold((sol.status, sol.pcost), (cpu.status, cpu.pcost))
+
+
 def test_probe_kernels_bit_equal_to_plain(card):
     rng = np.random.default_rng(1)
     a = torch.as_tensor(rng.normal(size=(8, 128)), dtype=torch.float32, device=card)

@@ -3,7 +3,7 @@
   * `native_dd=True` overrides `factor_dtype`, as the reference's
     config.py says ("factor_dtype is ignored when set"): the f64 factor;
   * `dtype` takes every spelling of f64 the reference's callers pass
-    (numpy's, a string, JAX's), still refusing any other;
+    (numpy's, a string, JAX's) and of f32, still refusing any other;
   * `KKTStrategy` is exported with the reference's members and values.
 """
 
@@ -69,13 +69,15 @@ def test_every_f64_spelling_is_accepted_and_gives_the_same_bits():
     assert np.array_equal(one[0].x, one[1].x)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, np.float32, "float32",
-                                   jnp.float32, np.dtype("int64"), "double-ish"])
+@pytest.mark.parametrize("dtype", [torch.float16, np.float16, "float16",
+                                   jnp.bfloat16, np.dtype("int64"), "double-ish"])
 def test_other_dtypes_still_raise(dtype):
+    """f64 and f32 are the carry dtypes (f32: tests/test_torch_f32carry.py);
+    every other dtype raises."""
     c, G, h, dims = robust_ls_batch(0, 2, n=4, k=6)
-    with pytest.raises(ValueError, match="float64 only"):
+    with pytest.raises(ValueError, match="float64 or float32"):
         socp_tpu_torch.prepare_batch(c, G, h, dims, dtype=dtype, device="cpu")
-    with pytest.raises(ValueError, match="float64 only"):
+    with pytest.raises(ValueError, match="float64 or float32"):
         socp_tpu_torch.solve(portfolio(0, n=6, k=2)[0], dtype=dtype, device="cpu")
 
 

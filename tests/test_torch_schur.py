@@ -158,9 +158,15 @@ def test_ignored_fields_give_the_default_bits(field, value):
 
 
 def test_float32_carry_raises():
+    """f32 carries run (the reference's f32-carries mode, held to the
+    reference by tests/test_torch_f32carry.py); a carry below f32 raises."""
     prob, _ = _c4(1, 4)
-    with pytest.raises(ValueError, match="float64 only"):
-        solve_block(prob, dtype=np.float32, device="cpu")
+    for dtype in (np.float16, "bfloat16"):
+        with pytest.raises(ValueError, match="float64 or float32"):
+            solve_block(prob, dtype=dtype, device="cpu")
+    out = solve_block(prob, dtype=np.float32, device="cpu")
+    assert out[4] == Status.OPTIMAL
+    assert np.array_equal(out[0], out[0].astype(np.float32))
 
 
 @pytest.mark.parametrize("gondzio", [0, 1])
