@@ -190,12 +190,37 @@ Phases, each printing one JSON line to stdout:
               b, bit for bit; then timed against solve_triangular in turns
               (kernel, library, library, kernel, twice); and an empty
               kernel's launch (probe_empty), the floor under every probe.
+ 12. examples  the six examples of socp_tpu_torch/examples/ through their
+              run() on the card at the reference scripts' sizes, one rank,
+              mesh=None, each with the counts at 0 just before it and the
+              kernels' plain versions counted (none may run): its f64
+              kernels launched (the single ones, the batched ones, or both
+              for block_schur and admm_stochastic) and no other.  Held:
+              portfolio (seed 7, n = 200) OPTIMAL, not inaccurate, the
+              model's checks, pcost within 1e-7 of utils.oracle; warm_start
+              (n = 120, 5 days) day 0 within 1e-7 of the oracle and every
+              warm pcost within 1e-7 of cold; batched_robust_ls (B = 64,
+              n = 50, native_dd) all OPTIMAL at the 1e-8 tolerances (pres,
+              dres, and gap or relgap, on every lane), four lanes
+              within 1e-7 of the oracle; block_schur (K = 8) OPTIMAL within
+              1e-6 of the known optimum; admm_stochastic (S = 32, 100
+              rounds) every inner solve OPTIMAL, its rounds and objective
+              (1e-9) those of a CPU re-run, the extensive form OPTIMAL
+              within 1e-7 of the oracle; huge_cone (q = 8,193) the status
+              of a CPU re-run (primal infeasible), held to its certificate
+              (huge_held).  Then the portfolio once more inside
+              utils.profiling.trace: the trace must name the f64 single
+              kernels (the kernels of the entry points chol_single_f64 and
+              tri_pair_single_f64).  Its line carries a
+              utils.metrics.metric_record a run (wall s, status,
+              iterations, launches) and the PhaseTimers report, which is
+              also printed.
 Then a {"kernels": [...]} line, one row per TPU kernel (11): the f64
 batched kernels at config 3's shapes, with their launches in phase 5 (each
 f64 row also has "launches_by_path": phases 5, 5n, 7, 7n, 7b, 7c, 7d,
-7e and 7f (multidevice_<run> for (a), multidevice_2ranks_<run> for (b)'s
-rank 0), and "by_shape": its numbers at config 4's and config 5's
-shapes, and for the single ones at the single path's and the huge cone's); the
+7e, 7f (multidevice_<run> for (a), multidevice_2ranks_<run> for (b)'s
+rank 0) and 12 (examples_<name>), and "by_shape": its numbers at config
+4's and config 5's shapes, and for the single ones at the single path's and the huge cone's); the
 f64 single-instance ones at n = 500, k = 1 with the path's other shapes
 beside, with their launches in phase 7's default run of config 2 and, per
 config, of configs 1 and 2; the f32 Cholesky and pair solve at B = 4096,
@@ -2513,6 +2538,245 @@ def phase_probes():
     return launches, errs, timing, floor, turns
 
 
+@contextlib.contextmanager
+def plain_calls():
+    """Within it, calls of the four kernels' plain versions (ops.chol's
+    *_plain) are counted in the dict it yields."""
+    from socp_tpu_torch.ops import chol
+
+    names = [f"{k}_plain" for k in F64_KERNELS]
+    saved = {name: getattr(chol, name) for name in names}
+    calls = {name: 0 for name in names}
+
+    def counted(name):
+        def call(*args):
+            calls[name] += 1
+            return saved[name](*args)
+        return call
+
+    for name in names:
+        setattr(chol, name, counted(name))
+    try:
+        yield calls
+    finally:
+        for name, f in saved.items():
+            setattr(chol, name, f)
+
+
+def trace_kernels(run, tries=3):
+    """Run `run()` inside utils.profiling.trace and read the Chrome trace
+    it writes: {category: [kernel names]} of its device kernels (by
+    `_category`) and its file's size.  The tracer can drop a trace's
+    device events: a trace without any is taken again, up to `tries`
+    times."""
+    import glob
+    import tempfile
+
+    from socp_tpu_torch.utils.profiling import trace
+
+    for attempt in range(tries):
+        with tempfile.TemporaryDirectory() as tmp:
+            with trace(tmp) as log_dir:
+                run()
+            files = glob.glob(f"{log_dir}/*.pt.trace.json")
+            check(len(files) == 1, f"examples: trace wrote {files}")
+            size = len(open(files[0], "rb").read())
+            with open(files[0]) as f:
+                events = json.load(f)["traceEvents"]
+        kernels = {}
+        for ev in events:
+            if ev.get("cat") == "kernel":
+                kernels.setdefault(_category(ev["name"]), set()).add(ev["name"])
+        if kernels:
+            return {c: sorted(v) for c, v in kernels.items()}, size
+        print(f"chip_smoke: examples trace try {attempt + 1}: no device "
+              "events", file=sys.stderr, flush=True)
+    return {}, size
+
+
+# the f64 kernels each example's card run launches (the others: none)
+EXAMPLE_KERNELS = {
+    "portfolio": ("chol_single", "tri_pair_single"),
+    "batched_robust_ls": ("chol_batched", "tri_pair_batched"),
+    "warm_start": ("chol_single", "tri_pair_single"),
+    "block_schur": F64_KERNELS,           # the blocks and the p x p Schur
+    "admm_stochastic": F64_KERNELS,       # the scenarios, the extensive form
+    "huge_cone": ("chol_single", "tri_pair_single"),
+}
+
+
+def phase_examples():
+    """The six examples (socp_tpu_torch/examples/, phase 12) on the card
+    at the reference scripts' sizes, one rank, mesh=None: each example's
+    run() with the counts at 0 just before it and the plain versions'
+    calls counted, each held to the checks of the module doc; then the
+    portfolio again inside utils.profiling.trace.  Returns the launches
+    by example."""
+    from socp_tpu_torch import Status
+    from socp_tpu_torch.examples import (admm_stochastic, batched_robust_ls,
+                                         block_schur, huge_cone, portfolio,
+                                         warm_start)
+    from socp_tpu_torch.utils import oracle
+    from socp_tpu_torch.utils.metrics import metric_record
+    from socp_tpu_torch.utils.profiling import PhaseTimers
+
+    timers = PhaseTimers()
+    launches, walls = {}, {}
+
+    def on_card(name, run):
+        torch.cuda.synchronize()
+        reset_counts()
+        # the examples' iteration tables go to stderr
+        with plain_calls() as plain, contextlib.redirect_stdout(sys.stderr), \
+                timers.phase(name):
+            t0 = time.perf_counter()
+            r = run()
+            torch.cuda.synchronize()
+            walls[name] = time.perf_counter() - t0
+        got = read_counts()
+        check(not any(plain.values()),
+              f"examples {name}: plain versions ran on the card: {plain}")
+        want = EXAMPLE_KERNELS[name]
+        check(all(got[k] > 0 for k in want),
+              f"examples {name}: launched {got}, not all of {want}")
+        none_of(got, [k for k in got if k not in want], f"examples {name}")
+        launches[name] = {k: got[k] for k in want}
+        return r
+
+    def near(a, b, tol):
+        return abs(a - b) <= tol * max(1.0, abs(b))
+
+    def by_oracle(prob):
+        return oracle.solve(prob.c, prob.G, prob.h, prob.dims, A=prob.A,
+                            b=prob.b)
+
+    out = {}
+    # portfolio: OPTIMAL, the model's checks, pcost against the oracle
+    r = on_card("portfolio", portfolio.run)
+    ref = by_oracle(r["problem"])
+    check(r["status"] == Status.OPTIMAL and not r["inaccurate"]
+          and r["risk"] <= r["sigma_max"] * (1 + 1e-6)
+          and r["budget_err"] <= 1e-6 and r["w_min"] >= -1e-7
+          and ref["status"] == int(Status.OPTIMAL)
+          and near(r["pcost"], ref["pcost"], 1e-7),
+          f"examples portfolio: {r['solution']}, oracle {ref['status_name']} "
+          f"{ref['pcost']!r}")
+    out["portfolio"] = {"status": r["status"].name, "iterations": r["iterations"],
+                        "pcost": r["pcost"], "oracle_pcost": ref["pcost"],
+                        "risk": r["risk"], "budget_err": r["budget_err"],
+                        "w_min": r["w_min"], "solve_s": r["wall_s"]}
+
+    # warm_start: day 0 against the oracle, every warm day against cold
+    r = on_card("warm_start", warm_start.run)
+    ref = by_oracle(r["problem"])
+    base = r["base"]
+    check(base.status == Status.OPTIMAL and near(base.pcost, ref["pcost"], 1e-7)
+          and all(row["warm"].status == row["cold"].status == Status.OPTIMAL
+                  and near(row["warm"].pcost, row["cold"].pcost, 1e-7)
+                  for row in r["days"]),
+          f"examples warm_start: day 0 {base} oracle {ref['pcost']!r}; "
+          f"{[(row['cold'], row['warm']) for row in r['days']]}")
+    out["warm_start"] = {
+        "status": base.status.name, "iterations": base.iterations,
+        "day0_pcost": base.pcost, "oracle_pcost": ref["pcost"],
+        "iterations_cold": [row["cold"].iterations for row in r["days"]],
+        "iterations_warm": [row["warm"].iterations for row in r["days"]],
+        "total_cold": r["total_cold"], "total_warm": r["total_warm"]}
+
+    # batched_robust_ls: all OPTIMAL at 1e-8, four lanes against the oracle
+    r = on_card("batched_robust_ls", batched_robust_ls.run)
+    c, G, h, dims = r["data"]
+    x, y, s, z, status, k, stats, _ = r["out"]
+    lanes = (0, 21, 42, r["B"] - 1)
+    refs = {i: oracle.solve(c[i], G[i], h[i], dims) for i in lanes}
+    # the 1e-8 tolerances on every lane: pres, dres and gap or relgap (an
+    # OPTIMAL lane may end with its gap above 1e-8 and its relgap below)
+    strict = ((stats[:, 4] <= 1e-8) & (stats[:, 5] <= 1e-8)
+              & ((stats[:, 2] <= 1e-8) | (stats[:, 3] <= 1e-8)))
+    check(r["config"].native_dd and r["optimal"] == r["B"] == 64
+          and strict.all() and not stats[:, 6].any()
+          and all(near(stats[i, 0], refs[i]["pcost"], 1e-7) for i in lanes),
+          f"examples batched_robust_ls: optimal {r['optimal']}/{r['B']}, max "
+          f"gap {r['max_gap']}, lanes {[(stats[i, 0], refs[i]['pcost']) for i in lanes]}")
+    out["batched_robust_ls"] = {
+        "status": "OPTIMAL", "optimal": r["optimal"], "B": r["B"],
+        "iterations": r["iterations"], "max_gap": r["max_gap"],
+        "max_relgap": float(stats[:, 3].max()),
+        "first_s": r["first_s"], "steady_s": r["steady_s"],
+        "solves_per_s": r["solves_per_s"],
+        "lane_pcost_rel": {i: abs(stats[i, 0] - refs[i]["pcost"])
+                           / max(1.0, abs(refs[i]["pcost"])) for i in lanes}}
+
+    # block_schur: OPTIMAL at the known optimum (tests/test_schur.py:64)
+    r = on_card("block_schur", block_schur.run)
+    check(r["status"] == Status.OPTIMAL and not r["inaccurate"] and r["K"] == 8
+          and near(r["pcost"], r["pstar"], 1e-6),
+          f"examples block_schur: {r['status'].name} pcost {r['pcost']!r} "
+          f"known {r['pstar']!r}")
+    out["block_schur"] = {"status": r["status"].name, "K": r["K"],
+                          "iterations": r["iterations"], "pcost": r["pcost"],
+                          "pstar": r["pstar"], "solve_s": r["wall_s"]}
+
+    # admm_stochastic: every inner solve OPTIMAL, equal to a CPU re-run;
+    # the extensive form against the oracle
+    r = on_card("admm_stochastic", admm_stochastic.run)
+    cpu = admm_stochastic.run(verbose=False, device="cpu")
+    res, ext = r["admm"], r["extensive"]
+    ref = by_oracle(r["extensive_problem"])
+    check(res.inner_status_ok
+          and res.outer_iterations == cpu["admm"].outer_iterations
+          and abs(res.objective - cpu["objective"])
+          <= 1e-9 * abs(cpu["objective"])
+          and ext.status == Status.OPTIMAL
+          and near(ext.pcost, ref["pcost"], 1e-7),
+          f"examples admm_stochastic: rounds {res.outer_iterations} (CPU "
+          f"{cpu['admm'].outer_iterations}), objective {res.objective!r} (CPU "
+          f"{cpu['objective']!r}), inner ok {res.inner_status_ok}, extensive "
+          f"{ext} oracle {ref['pcost']!r}")
+    out["admm_stochastic"] = {
+        "status": "OPTIMAL" if res.inner_status_ok else "inner_failed",
+        "iterations": res.outer_iterations, "objective": res.objective,
+        "cpu_objective": cpu["objective"], "pres": res.primal_res,
+        "dres": res.dual_res, "rho": res.rho,
+        "extensive": {"status": ext.status.name, "iterations": ext.iterations,
+                      "pcost": ext.pcost, "oracle_pcost": ref["pcost"]},
+        "admm_s": r["admm_s"], "extensive_s": r["extensive_s"]}
+
+    # huge_cone: the status of a CPU re-run, held to its certificate
+    r = on_card("huge_cone", huge_cone.run)
+    cpu = huge_cone.run(device="cpu")
+    check(r["status"] == cpu["status"],
+          f"examples huge_cone: {r['status'].name}, CPU {cpu['status'].name}")
+    held = huge_held("examples", r["data"], r["result"], cpu["status"])
+    out["huge_cone"] = {"status": r["status"].name, "q": r["q"],
+                        "iterations": r["iterations"], "resid": r["resid"],
+                        "bound": r["bound"], "cpu_iterations": cpu["iterations"],
+                        "solve_s": r["wall_s"], **held}
+
+    # the portfolio once more, inside utils.profiling.trace
+    kernels, trace_bytes = trace_kernels(
+        lambda: portfolio.run(verbose=False, device="cuda"))
+    check("chol_single" in kernels and "tri_pair_single" in kernels,
+          f"examples: the trace names no f64 single kernels: {kernels}")
+
+    report = timers.report()
+    print(report, flush=True)
+    records = [metric_record(f"example_{name}", "wall_s", walls[name], "s",
+                             mesh_devices=1, status=out[name]["status"],
+                             iterations=out[name]["iterations"],
+                             launches=launches[name])
+               for name in EXAMPLE_KERNELS]
+    emit({"phase": "examples", "device": torch.cuda.get_device_name(0),
+          "records": records, "checks": out,
+          "trace": {"bytes": trace_bytes,
+                    "entry_points": {"chol_single_f64": kernels["chol_single"],
+                                     "tri_pair_single_f64":
+                                         kernels["tri_pair_single"]},
+                    "categories": sorted(kernels)},
+          "phase_timers": report.splitlines()})
+    return launches
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available", file=sys.stderr)
@@ -2549,6 +2813,7 @@ def main():
     fc_launches, (fc_run, fc_solve_s) = phase_f32carry()
     phase_profile(fc_run, fc_solve_s, "config3_f32carry")
     p_launches, p_errs, p_timing, p_floor, p_turns = phase_probes()
+    e_launches = phase_examples()
     errs.update(s_errs)
     meta = {
         "chol_batched": ("socp_tpu_torch/csrc/chol_batched.cu",
@@ -2588,7 +2853,9 @@ def main():
                    "admm_native": a_launches["c"][name],
                    **{"hugecone" if run == "a" else f"hugecone_{run}": v[name]
                       for run, v in h_launches.items()},
-                   **{run: v[name] for run, v in md_launches.items()}}
+                   **{run: v[name] for run, v in md_launches.items()},
+                   **{f"examples_{ex}": v.get(name, 0)
+                      for ex, v in e_launches.items()}}
         row = {"name": name, "route": "cuda", "source": source,
                "replaces": replaces, "launches": launches[name],
                "launches_by_path": by_path,

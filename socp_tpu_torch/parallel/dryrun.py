@@ -1,5 +1,11 @@
-"""One step of every sharded path on tiny shapes: the port of
-`__graft_entry__.dryrun_multichip` (__graft_entry__.py:52-110).
+"""The single-device entry and one step of every sharded path on tiny
+shapes: the ports of `__graft_entry__.entry` and `dryrun_multichip`
+(__graft_entry__.py:21-49, :52-110).
+
+`entry()` returns `(fn, args)`: the flagship workload (BASELINE config
+3's batched robust least squares, at 8 instances of n = 12) padded and on
+the device, and the lockstep IPM over it; `fn(*args)` runs
+`ipm/driver.solve_core` and returns its tensors.
 
     torchrun --nproc-per-node 2 -m socp_tpu_torch.parallel.dryrun        # card
     torchrun --nproc-per-node 2 -m socp_tpu_torch.parallel.dryrun --cpu  # gloo
@@ -22,6 +28,23 @@ from socp_tpu_torch.config import SolverConfig
 def _finite(what: str, *arrays) -> None:
     if not all(np.isfinite(a).all() for a in arrays):
         raise RuntimeError(f"dryrun_multichip: {what} is not finite")
+
+
+def entry(device=None):
+    """(fn, args): the lockstep batched IPM over the flagship instances,
+    `robust_ls_batch(0, batch=8, n=12, k=16)` with
+    `SolverConfig(max_iter=10, refine_steps=0)`.  `fn(*args)` returns
+    `ipm/driver.solve_core`'s (x, y, s, z, status, iterations, stats,
+    hist) as tensors, s and z padded.  `device=None` means "cuda" (it raises where CUDA is
+    absent); `device="cpu"` runs the kernels' plain versions."""
+    from socp_tpu_torch.api import prepare_batch
+    from socp_tpu_torch.models.robust_ls import robust_ls_batch
+
+    c, G, h, dims = robust_ls_batch(0, batch=8, n=12, k=16)
+    fn, args, _ = prepare_batch(
+        c, G, h, dims, config=SolverConfig(max_iter=10, refine_steps=0),
+        device=device)
+    return fn, args
 
 
 def dryrun_multichip(n_devices: int, device=None) -> None:

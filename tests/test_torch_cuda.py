@@ -660,6 +660,34 @@ def test_card_f32carry_solve_matches_cpu(card):
     _f32_hold((sol.status, sol.pcost), (cpu.status, cpu.pcost))
 
 
+@pytest.mark.parametrize("name", ["portfolio", "batched_robust_ls"])
+def test_card_example_matches_its_cpu_run(card, name):
+    """socp_tpu_torch/examples/ on the card against the same call on the
+    CPU's plain path: status, iterations and pcost within 1e-9 relative.
+    batched_robust_ls takes the native_dd route on the card, and its CPU
+    run is given the same config."""
+    from socp_tpu_torch.examples import batched_robust_ls, portfolio
+
+    if name == "portfolio":
+        r = portfolio.run(verbose=False)
+        cpu = portfolio.run(verbose=False, device="cpu")
+        card_out = (r["status"], r["iterations"], r["pcost"])
+        cpu_out = (cpu["status"], cpu["iterations"], cpu["pcost"])
+        pairs = [(card_out, cpu_out)]
+    else:
+        r = batched_robust_ls.run(B=16)
+        assert r["config"].native_dd and r["optimal"] == 16
+        out = r["out"]
+        cpu = socp_tpu_torch.solve_batch_raw(*r["data"], config=r["config"],
+                                             device="cpu")
+        pairs = [((out[4][i], out[5][i], out[6][i, 0]),
+                  (cpu[4][i], cpu[5][i], cpu[6][i, 0])) for i in range(16)]
+    assert r["device"] == torch.cuda.get_device_name(0)
+    for (status, iters, pcost), (c_status, c_iters, c_pcost) in pairs:
+        assert int(status) == int(c_status) and int(iters) == int(c_iters)
+        assert abs(pcost - c_pcost) <= 1e-9 * max(1.0, abs(c_pcost))
+
+
 def test_probe_kernels_bit_equal_to_plain(card):
     rng = np.random.default_rng(1)
     a = torch.as_tensor(rng.normal(size=(8, 128)), dtype=torch.float32, device=card)

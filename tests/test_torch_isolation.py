@@ -13,10 +13,14 @@ import torch
 import socp_tpu_torch
 from socp_tpu_torch.carry import from_reference_warm
 from socp_tpu_torch.cones.layout import make_layout
+from socp_tpu_torch.examples import (admm_stochastic, batched_robust_ls,
+                                     block_schur, huge_cone, warm_start)
+from socp_tpu_torch.examples import portfolio as ex_portfolio
 from socp_tpu_torch.models.portfolio import portfolio
 from socp_tpu_torch.models.robust_ls import robust_ls_batch
 from socp_tpu_torch.models.stochastic import scenario_portfolio
 from socp_tpu_torch.parallel.admm import admm_consensus
+from socp_tpu_torch.parallel.dryrun import entry
 from socp_tpu_torch.parallel.hugecone import prepare_huge, solve_huge
 from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
 from tests._host_memory import release_host_memory  # noqa: F401
@@ -51,7 +55,11 @@ def test_imports_without_jax_and_without_the_reference():
                 "parallel.schur", "parallel.admm", "models.stochastic",
                 "utils.checkpoint", "parallel.hugecone", "parallel.mesh",
                 "parallel.runtime", "parallel.collectives", "parallel.batch",
-                "parallel.dryrun"):
+                "parallel.dryrun", "utils.oracle", "utils.metrics",
+                "utils.profiling", "examples", "examples.portfolio",
+                "examples.batched_robust_ls", "examples.warm_start",
+                "examples.block_schur", "examples.admm_stochastic",
+                "examples.huge_cone"):
         assert f"socp_tpu_torch.{new}" in names
 
 
@@ -98,3 +106,13 @@ def test_entry_points_default_to_cuda():
     x, s = np.zeros((2, 6)), np.zeros((2, layout.m_pad))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         from_reference_warm(x, np.zeros((2, 0)), s, s, layout)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        entry()
+    for run in (lambda: ex_portfolio.run(n=6, k=2),
+                lambda: batched_robust_ls.run(B=2, n=4),
+                lambda: warm_start.run(n=6, k=2, days=1),
+                lambda: block_schur.run(K=2),
+                lambda: admm_stochastic.run(S=2, n=4, rounds=1),
+                lambda: huge_cone.run(n=4, q=9, l=2)):
+        with pytest.raises(RuntimeError, match="device='cpu'"):
+            run()
