@@ -13,8 +13,12 @@ Phases, each printing one JSON line to stdout:
               micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and
               3, and config 5's (65,536 scenarios and a chunk of 2048, n =
               21 and the 1 x 1 Schur complement); a matrix that is not
-              positive definite must give a non-finite factor.  Timed at
-              config 3's, config 4's and config 5's shapes.
+              positive definite must give a non-finite factor (n = 102, 10,
+              21).  Timed at config 3's, config 4's and config 5's shapes
+              (n = 21 and 1 at 65,536); every shape named with the schedule
+              its kernel's source chose (`ops.chol.batched_schedule`: the
+              small-order "warp x G" up to n = 32, register tiles or panels
+              above).
               Timed two ways (`timed`): call_ms, CUDA events around one
               call, host work included (median of 15), and kernel_ms, the
               device time of the kernels one call enqueues, from
@@ -142,10 +146,13 @@ Phases, each printing one JSON line to stdout:
               1e4 (f32 cannot factor the f64 phases' kappa = 1e8 matrices:
               its rounding, 6e-8 relative, times 1e8 exceeds the smallest
               pivot) made from a numpy seed: batched at n = 1 ... 240
-              (F32_BATCHED) with k = 1, 3, single
+              (F32_BATCHED, with configs 4's and 5's shapes) with k = 1, 3
+              (and 8 at config 4's blocks), single
               at n = 1 ... 1000 with k = 1, 4, 5; non-PD inputs give
-              non-finite factors; timed as phase 3 at B = 4096, n = 102 and
-              single at config 2's shapes in this mode and P1's n = 128.
+              non-finite factors; timed as phase 3 at B = 4096, n = 102, at
+              configs 4's and 5's shapes (their f32-carry runs; schedules
+              named as in phase 3) and single at config 2's shapes in this
+              mode and P1's n = 128.
   9. f32factor  config 3 with SolverConfig(factor_dtype="float32") through
               prepare_batch on "cuda" (TF32 off is asserted first): every
               instance OPTIMAL at the reference's relaxed tolerances, pcost
@@ -224,13 +231,15 @@ rank 0) and 12 (examples_<name>), and "by_shape": its numbers at config
 f64 single-instance ones at n = 500, k = 1 with the path's other shapes
 beside, with their launches in phase 7's default run of config 2 and, per
 config, of configs 1 and 2; the f32 Cholesky and pair solve at B = 4096,
-n = 102 with the single instances beside, with their launches in phases 9
+n = 102 with the single instances beside and "by_shape" at configs 4's
+and 5's shapes, with their launches in phases 9
 and 10 (and 10b's by run beside); the probes (P1 its own row), with their
 launches in phase 11, P2-P5 with the empty launch's device time beside
 and P5 with its timings in turns.  A
 row's "ms" and "library_ms" are event times of one call (call_ms,
 library_call_ms), "kernel_ms" and "library_kernel_ms" device times beside
-them.  Last, the {"ok": true, ...} line.
+them; a batched kernel's numbers name the schedule that ran ("schedule").
+Last, the {"ok": true, ...} line.
 Any failed check exits non-zero before the last line is printed.  It needs
 CUDA and the repository: without either it exits non-zero.
 """
@@ -294,14 +303,16 @@ SINGLE_PAIR_AT = {"f64": ((1, 1), (4, 1), (5, 1), (8, 1), (50, 1), (50, 5),
 # (B, n) of the batched kernels' checks: config 3's shapes, config 4's
 # blocks (with k = P4 too), then both sides of the micro-tile (4) and
 # panel (32) edges and of the Cholesky's second schedule (above n = 108),
-# up to the largest n the wrappers take
+# up to the largest n the wrappers take, config 5's shapes, and n = 16
+# and 17 either side of the small-order schedule's half-warp edge
 F64_BATCHED = ((B_MAIN, N_MAIN + 2), (K4, NB4), (8, 37), (B_MAIN, 3), (64, 1),
                (64, 2), (64, 4), (64, 5), (64, 31), (64, 32), (64, 33),
                (64, 65), (64, 108), (64, 109), (64, 169), (S5, N5 + 1),
-               (CHUNK5, N5 + 1), (S5, 1), (CHUNK5, 1))
+               (CHUNK5, N5 + 1), (S5, 1), (CHUNK5, 1), (64, 16), (64, 17))
 F32_BATCHED = ((B_MAIN, 1), (B_MAIN, 3), (B_MAIN, 37), (B_MAIN, 102),
                (64, 2), (64, 5), (64, 31), (64, 32), (64, 33), (64, 65),
-               (64, 108), (64, 109), (256, 169), (256, 240))
+               (64, 108), (64, 109), (256, 169), (256, 240), (K4, NB4),
+               (S5, N5 + 1), (CHUNK5, N5 + 1), (S5, 1), (64, 16), (64, 17))
 KAPPA = {"f64": 1e8, "f32": 1e4}
 F32_SINGLE_NS = (1, 2, 5, 31, 32, 33, 50, 64, 65, 128, 240, 241, 333, 500,
                  768, 1000)
@@ -528,17 +539,17 @@ def _kernel_name(mangled):
     """`chol_single_tiles_kernel<double>` from its mangled name: the
     length-prefixed name that ends in "kernel" (the length may follow the
     digits of a hash, so each suffix of a digit run is tried), then the
-    template arguments, a type and an int."""
+    template arguments, a type and ints (`chol_small_kernel<double,32,24>`)."""
     for m in re.finditer(r"\d+", mangled):
         for start in range(m.start(), m.end()):
             name = mangled[m.end():m.end() + int(mangled[start:m.end()])]
             if name.endswith("kernel") and name.isidentifier():
-                args = re.match(r"I([df])(?:Li(\d+)E)?",
+                args = re.match(r"I([df])((?:Li\d+E)*)",
                                 mangled[m.end() + len(name):])
                 if args:
                     name += "<" + ",".join(
                         [{"d": "double", "f": "float"}[args[1]]]
-                        + ([args[2]] if args[2] else [])) + ">"
+                        + re.findall(r"Li(\d+)E", args[2])) + ">"
                 return name
     return mangled
 
@@ -583,12 +594,15 @@ def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
     k in ks (by default config 3's shape: B = 4096, n = 102, k = 1) in one
     dtype, each beside its library call and plain version, with its bound:
     {"chol_batched": ..., "tri_pair_batched": at ks[0],
-    "tri_pair_batched k=K": at each further k}."""
+    "tri_pair_batched k=K": at each further k}, each with the schedule its
+    kernel's source chose at that shape."""
     from socp_tpu_torch.ops import chol
 
     key = "f64" if dtype == torch.float64 else "f32"
     size = 8 if key == "f64" else 4
     rate = FP64_FLOPS_PER_S if key == "f64" else FP32_FLOPS_PER_S
+    # (kernel_compare.py times older trees too, whose package names none)
+    schedule = getattr(chol, "batched_schedule", lambda *a: None)
     H = torch.as_tensor(spd_batch(rng, B, nv, kappa=KAPPA[key]), dtype=dtype,
                         device="cuda")
     L = chol.chol_batched(H)
@@ -599,7 +613,8 @@ def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
     out = {"chol_batched": timed(
         lambda: chol.chol_batched(H), lambda: torch.linalg.cholesky_ex(H),
         lambda: chol.chol_batched_plain(H),
-        bound=bound(tri + full, B * chol_flops(nv), rate))}
+        bound=bound(tri + full, B * chol_flops(nv), rate),
+        schedule=schedule("chol_batched", nv))}
     for k in ks:
         rhs = torch.as_tensor(rng.standard_normal((B, nv, k)), dtype=dtype,
                               device="cuda")
@@ -608,7 +623,8 @@ def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
             lambda rhs=rhs: chol.tri_pair_batched(L, rhs),
             lambda rhs=rhs: torch.cholesky_solve(rhs, L),
             lambda rhs=rhs: chol.tri_pair_batched_plain(L, rhs),
-            bound=bound(tri + 2 * rb, B * 2 * nv * nv * k, rate))
+            bound=bound(tri + 2 * rb, B * 2 * nv * nv * k, rate),
+            schedule=schedule("tri_pair_batched", nv, k))
     return out
 
 
@@ -618,30 +634,38 @@ def phase_kernels():
     micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and 3 (and
     P4 at config 4's blocks); the non-PD check; timings at config 3's
     shape, at config 4's (B = 10,240, n = 10; the pair solve at k = 8 and
-    1) and at config 5's (B = 2048 and 65,536, n = 21, k = 1)."""
+    1) and at config 5's (B = 2048 and 65,536, n = 21, k = 1; the 1 x 1
+    Schur complement at 65,536).  Every checked shape is named with its
+    schedule."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED)
     dev = torch.device("cuda")
     results = {"chol_batched": [], "tri_pair_batched": []}
+    schedules = {"chol_batched": {}, "tri_pair_batched": {}}
     for B, n in F64_BATCHED:
         H = torch.as_tensor(spd_batch(rng, B, n), device=dev)
         L = chol.chol_batched(H)
         results["chol_batched"].append(bit_equal(
             L, chol.chol_batched_plain(H), f"chol_batched B={B} n={n}"))
+        schedules["chol_batched"][f"B={B},n={n}"] = chol.batched_schedule(
+            "chol_batched", n)
         for k in (1, 3) + ((P4,) if (B, n) == (K4, NB4) else ()):
             rhs = torch.as_tensor(rng.standard_normal((B, n, k)), device=dev)
             results["tri_pair_batched"].append(bit_equal(
                 chol.tri_pair_batched(L, rhs), chol.tri_pair_batched_plain(L, rhs),
                 f"tri_pair_batched B={B} n={n} k={k}"))
+            schedules["tri_pair_batched"][f"B={B},n={n},k={k}"] = (
+                chol.batched_schedule("tri_pair_batched", n, k))
 
     nv = N_MAIN + 2
-    bad = torch.as_tensor(spd_batch(rng, 64, nv, neg=True), device=dev)
-    for f in (chol.chol_batched, chol.chol_batched_plain):
-        Lb = f(bad)
-        torch.cuda.synchronize()
-        check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
-              f"{f.__name__}: a non-PD input gave a finite factor")
+    for n in (nv, NB4, N5 + 1):     # the tiles and the small-order schedule
+        bad = torch.as_tensor(spd_batch(rng, 64, n, neg=True), device=dev)
+        for f in (chol.chol_batched, chol.chol_batched_plain):
+            Lb = f(bad)
+            torch.cuda.synchronize()
+            check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
+                  f"{f.__name__}: a non-PD input at n={n} gave a finite factor")
 
     timing = batched_timing(torch.float64, rng)
     t4 = batched_timing(torch.float64, rng, K4, NB4, ks=(P4, 1))
@@ -651,14 +675,16 @@ def phase_kernels():
         "tri_pair_batched": {f"{at},k={P4}": t4["tri_pair_batched"],
                              f"{at},k=1": t4["tri_pair_batched k=1"]}},
         "config5": {"chol_batched": {}, "tri_pair_batched": {}}}
-    # config 5's H (n = 21) in a chunk of 2048 and in one batch of 65,536
-    for B in (CHUNK5, S5):
-        t5 = batched_timing(torch.float64, rng, B, N5 + 1)
-        at = f"B={B},n={N5 + 1}"
+    # config 5's H (n = 21) in a chunk of 2048 and in one batch of 65,536,
+    # and the 1 x 1 Schur complement of the one batch
+    for B, n in ((CHUNK5, N5 + 1), (S5, N5 + 1), (S5, 1)):
+        t5 = batched_timing(torch.float64, rng, B, n)
+        at = f"B={B},n={n}"
         shapes["config5"]["chol_batched"][at] = t5["chol_batched"]
         shapes["config5"]["tri_pair_batched"][f"{at},k=1"] = t5["tri_pair_batched"]
     emit({"phase": "kernels", "batched": [list(x) for x in F64_BATCHED],
           "ks": [1, 3], "block_ks": [1, 3, P4], "bit_equal": True,
+          "schedules": schedules,
           "max_abs_err": {k: max(v) for k, v in results.items()},
           "timing_shape": {"B": B_MAIN, "n": nv, "k": 1},
           **{k: {kk: vv for kk, vv in v.items() if kk != "bound"}
@@ -845,7 +871,9 @@ def _category(name):
     low = name.lower()
     for key, cat in (("nccl", "nccl"),      # ncclDevKernel_AllReduce_...
                      ("chol_batched_kernel", "chol_batched"),
+                     ("chol_small_kernel", "chol_batched"),   # n <= 32
                      ("tri_pair_batched_kernel", "tri_pair_batched"),
+                     ("tri_pair_small_kernel", "tri_pair_batched"),
                      ("chol_single_", "chol_single"),
                      ("tri_pair_single_kernel", "tri_pair_single"),
                      ("gemm", "cublas"), ("gemv", "cublas"), ("cutlass", "cublas"),
@@ -1964,8 +1992,11 @@ def div_rn_check(dtype, pairs=1 << 24):
 
 def phase_f32_kernels():
     """The f32 instances of the four kernels against their plain versions,
-    bit for bit; the non-PD check; timings at config 3's shape and the
-    single ones at n = 1 and 500 (config 2's in f32 mode) and 128 (P1's)."""
+    bit for bit; the non-PD check; timings at config 3's shape, at configs
+    4's and 5's (their f32-carry runs: B = 10,240, n = 10, k = 8 and 1;
+    B = 2048 and 65,536, n = 21, k = 1; 65,536 at n = 1), each named with
+    its schedule, and the single ones at n = 1 and 500 (config 2's in f32
+    mode) and 128 (P1's)."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED + 2)
@@ -1976,7 +2007,7 @@ def phase_f32_kernels():
         L = chol.chol_batched(H)
         errs["chol_f32"].append(bit_equal(L, chol.chol_batched_plain(H),
                                           f"chol_batched f32 B={B} n={n}"))
-        for k in (1, 3):
+        for k in (1, 3) + ((P4,) if (B, n) == (K4, NB4) else ()):
             rhs = torch.randn((B, n, k), generator=torch.Generator(dev).manual_seed(k),
                               device=dev, dtype=torch.float32)
             errs["tri_pair_f32"].append(bit_equal(
@@ -2011,6 +2042,16 @@ def phase_f32_kernels():
     batched = batched_timing(torch.float32, rng)
     timing = {"chol_f32": {"batched": batched["chol_batched"]},
               "tri_pair_f32": {"batched": batched["tri_pair_batched"]}}
+    # configs 4's and 5's shapes, as phase_kernels times them in f64
+    by_shape = {"chol_f32": {}, "tri_pair_f32": {}}
+    for B, n, ks in ((K4, NB4, (P4, 1)), (CHUNK5, N5 + 1, (1,)),
+                     (S5, N5 + 1, (1,)), (S5, 1, (1,))):
+        t = batched_timing(torch.float32, rng, B, n, ks=ks)
+        at = f"B={B},n={n}"
+        by_shape["chol_f32"][at] = t["chol_batched"]
+        for k in ks:
+            by_shape["tri_pair_f32"][f"{at},k={k}"] = t[
+                "tri_pair_batched" if k == ks[0] else f"tri_pair_batched k={k}"]
     single = single_timing(torch.float32, rng)
     timing["chol_f32"].update({f"single_{at}": t
                                for at, t in single["chol_single"].items()})
@@ -2023,8 +2064,11 @@ def phase_f32_kernels():
           "max_abs_err": {k: max(v) for k, v in errs.items()},
           "timing": {name: {at: {kk: vv for kk, vv in t.items() if kk != "bound"}
                             for at, t in by.items()}
-                     for name, by in timing.items()}})
-    return errs, timing
+                     for name, by in timing.items()},
+          "by_shape": {name: {at: {kk: vv for kk, vv in t.items() if kk != "bound"}
+                              for at, t in by.items()}
+                       for name, by in by_shape.items()}})
+    return errs, timing, by_shape
 
 
 def tf32_off():
@@ -2805,7 +2849,7 @@ def main():
     phase_profile(h_run, h_solve_s, "hugecone")
     del h_run
     md_launches = phase_multidevice()
-    f_errs, f_timing = phase_f32_kernels()
+    f_errs, f_timing, f_by_shape = phase_f32_kernels()
     f_launches, f_fn, f_args, f_solve_s = phase_f32factor()
     phase_profile(lambda: f_fn(*f_args)[4].cpu(), f_solve_s, "config3_f32factor")
     fs_launches, fs_run, fs_solve_s = phase_f32factor_single()
@@ -2830,14 +2874,17 @@ def main():
         # ms, library_ms: CUDA events around one call, host work included
         # (call_ms, library_call_ms); kernel_ms, library_kernel_ms: device
         # time of the kernels the call enqueues, and how device_ms took it
-        return {"ms": t["call_ms"], "call_ms": t["call_ms"],
-                "kernel_ms": t["kernel_ms"], "kernel_ms_by": t["kernel_ms_by"],
-                "plain_ms": t["plain_ms"],
-                "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
-                "library_ms": t["library_call_ms"],
-                "library_call_ms": t["library_call_ms"],
-                "library_kernel_ms": t["library_kernel_ms"],
-                "library_kernel_ms_by": t["library_kernel_ms_by"]}
+        out = {"ms": t["call_ms"], "call_ms": t["call_ms"],
+               "kernel_ms": t["kernel_ms"], "kernel_ms_by": t["kernel_ms_by"],
+               "plain_ms": t["plain_ms"],
+               "bound_ms": t["bound"][0], "bound_by": t["bound"][1],
+               "library_ms": t["library_call_ms"],
+               "library_call_ms": t["library_call_ms"],
+               "library_kernel_ms": t["library_kernel_ms"],
+               "library_kernel_ms_by": t["library_kernel_ms_by"]}
+        if "schedule" in t:     # the batched kernels' schedule at the shape
+            out["schedule"] = t["schedule"]
+        return out
 
     rows = []
     for name, (source, replaces) in meta.items():
@@ -2897,6 +2944,8 @@ def main():
                    for run, v in fc_launches.items()}},
             "max_abs_err": max(f_errs[name]),
             **numbers(t["batched"]), "at": {"B": B_MAIN, "n": N_MAIN + 2, "k": 1},
+            # configs 4's and 5's shapes (their f32-carry runs)
+            "by_shape": {at: numbers(v) for at, v in f_by_shape[name].items()},
             "single": {"source": f"socp_tpu_torch/csrc/{base}_single.cu",
                        **{at[len("single_"):]: numbers(v) for at, v in t.items()
                           if at.startswith("single_")}}})

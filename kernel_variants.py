@@ -8,9 +8,11 @@ Each variant is csrc/chol_batched.cu or csrc/tri_pair_batched.cu with the
 text substitutions of VARIANTS applied (a substitution whose text is not
 found fails the run: the sources changed).  They are built by nvcc with
 the package's flags into socp_tpu_torch/_build/variants/ (all at once),
-loaded with ctypes, run at B = 4096, n = 102, k = 1 in f64 and f32 on
-inputs made from a numpy seed, and timed by device time (`device_ms` of
-chip_smoke.py: torch.profiler, median of 15).  A variant marked `exact`
+loaded with ctypes, run at B = 4096, n = 102, k = 1 (the register tiles
+and panels) or, for the small-order schedule's variants, at config 5's
+B = 65,536, n = 21, k = 1 or config 4's B = 10,240, n = 10 (k = 8), in
+f64 and f32 on inputs made from a numpy seed, and timed by device time
+(`device_ms` of chip_smoke.py: torch.profiler, median of 15).  A variant marked `exact`
 must stay bit-equal to the plain version; the knock-outs (the chain's
 square root, reciprocal and division or the update's arithmetic taken
 out) compute something else and only say how much of the time that part
@@ -83,7 +85,28 @@ TRI_CLOCK = {
     "        g[0] = clock64() - t0; g[1] = tw; g[2] = td; g[3] = to;\n      }\n"
     "      break;\n    }",
 }
-# name -> (source, substitutions, exact)
+# the small-order schedule (n <= 32): its chain (the pivot's square root,
+# reciprocal and division) or its update knocked out; its steps skipped
+# (only the copies in and out are left); a warp an instance at n = 10
+# against two; 8 warps a block against 4; the pair's step loops unrolled
+# by 4 (the f64 instance spills) against 2
+SMALL_NO_CHAIN = {"const T d = sqrt_rn(p), r = rcp_of(d);": "const T d = p, r = p;",
+                  "const T q = div_rn(live && i >= j ? acc[j] : T(1), d, r);":
+                  "const T q = mul_rn(acc[j], r);"}
+SMALL_NO_UPDATE = {"acc[k] = sub_rn(acc[k], mul_rn(q, mine[k]));": "acc[k] = mine[k];"}
+SMALL_COPIES = {"if (j >= n) break;\n    const T p = __shfl_sync":
+                "if (j >= 0) break;\n    const T p = __shfl_sync"}
+SMALL_WARPS = {"constexpr int kSmallWarps = 4;": "constexpr int kSmallWarps = 8;"}
+SMALL_ONE_A_WARP = {"    case 16: return launch_small_k<T, 16, 16>(H, L, batch, n, s);":
+                    "    case 16: return launch_small_k<T, 32, 16>(H, L, batch, n, s);"}
+TRI_SMALL_NO_DIVISION = {"T q = div_rn(live && i == j ? x : T(1), piv, rp);":
+                         "T q = mul_rn(x, rp);"}
+TRI_SMALL_L_ONLY = {"for (int base = 0; base < units; base += per_pass) {":
+                    "for (int base = 0; base < 0; base += per_pass) {"}
+TRI_SMALL_UNROLL4 = {"#pragma unroll 2\n    for (int j = 0;": "#pragma unroll 4\n    for (int j = 0;",
+                     "#pragma unroll 2\n    for (int j = n - 1;": "#pragma unroll 4\n    for (int j = n - 1;"}
+C5, C4, C4K = (65536, 21, 1), (10240, 10, 1), (10240, 10, 8)
+# name -> (source, substitutions, exact[, (B, n, k): config 3's by default])
 VARIANTS = {
     "chol": (CHOL, {}, True),
     "chol_no_chain": (CHOL, NO_CHAIN, False),
@@ -103,6 +126,19 @@ VARIANTS = {
     "tri_3_stages": (TRI, {"constexpr int kStages = 2;": "constexpr int kStages = 3;"}, True),
     "tri_2_warps": (TRI, {"constexpr int kWarps = 4;": "constexpr int kWarps = 2;"}, True),
     "tri_clock": (TRI, TRI_CLOCK, True),
+    "chol_small": (CHOL, {}, True, C5),
+    "chol_small_no_chain": (CHOL, SMALL_NO_CHAIN, False, C5),
+    "chol_small_no_update": (CHOL, SMALL_NO_UPDATE, False, C5),
+    "chol_small_copies_only": (CHOL, SMALL_COPIES, False, C5),
+    "chol_small_8_warps": (CHOL, SMALL_WARPS, True, C5),
+    "chol_small_n10": (CHOL, {}, True, C4),
+    "chol_small_n10_one_a_warp": (CHOL, SMALL_ONE_A_WARP, True, C4),
+    "tri_small": (TRI, {}, True, C5),
+    "tri_small_no_division": (TRI, TRI_SMALL_NO_DIVISION, False, C5),
+    "tri_small_l_copy_only": (TRI, TRI_SMALL_L_ONLY, False, C5),
+    "tri_small_8_warps": (TRI, SMALL_WARPS, True, C5),
+    "tri_small_unroll4": (TRI, TRI_SMALL_UNROLL4, True, C5),
+    "tri_small_n10_k8": (TRI, {}, True, C4K),
 }
 B, N = smoke.B_MAIN, smoke.N_MAIN + 2
 
@@ -115,7 +151,7 @@ def build(out):
     for header in _build.CSRC.glob("*.cuh"):
         (out / header.name).write_bytes(header.read_bytes())
     procs = {}
-    for name, (source, subs, _) in VARIANTS.items():
+    for name, (source, subs, *_) in VARIANTS.items():
         text = (_build.CSRC / f"{source}.cu").read_text()
         for old, new in subs.items():
             smoke.check(old in text, f"variant {name}: text not in {source}.cu:\n{old}")
@@ -147,30 +183,37 @@ def main():
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     for dtype, key in ((torch.float64, "f64"), (torch.float32, "f32")):
-        rng = np.random.default_rng(smoke.SEED)
-        H = torch.as_tensor(smoke.spd_batch(rng, B, N, kappa=smoke.KAPPA[key]),
-                            dtype=dtype, device="cuda")
-        L = chol.chol_batched_plain(H)
-        rhs = torch.as_tensor(rng.standard_normal((B, N, 1)), dtype=dtype,
-                              device="cuda")
-        X = chol.tri_pair_batched_plain(L, rhs)
+        inputs = {}       # (B, n, k) -> H, its plain factor L, rhs, X
         for name, (lib, ptxas) in libs.items():
-            source, _, exact = VARIANTS[name]
+            source, _, exact, *shape = VARIANTS[name]
+            Bv, Nv, Kv = shape[0] if shape else (B, N, 1)
+            if (Bv, Nv, Kv) not in inputs:
+                rng = np.random.default_rng(smoke.SEED)
+                H = torch.as_tensor(
+                    smoke.spd_batch(rng, Bv, Nv, kappa=smoke.KAPPA[key]),
+                    dtype=dtype, device="cuda")
+                L = chol.chol_batched_plain(H)
+                rhs = torch.as_tensor(rng.standard_normal((Bv, Nv, Kv)),
+                                      dtype=dtype, device="cuda")
+                inputs[Bv, Nv, Kv] = (H, L, rhs, chol.tri_pair_batched_plain(L, rhs))
+            H, L, rhs, X = inputs[Bv, Nv, Kv]
             fn = getattr(lib, f"{source}_{key}")
             fn.restype = I
             out = torch.empty_like(H if source == CHOL else rhs)
             if source == CHOL:
                 fn.argtypes = [P, P, I, I, P]
-                args = (H.data_ptr(), out.data_ptr(), B, N, stream)
+                args = (H.data_ptr(), out.data_ptr(), Bv, Nv, stream)
             else:
                 fn.argtypes = [P, P, P, I, I, I, P]
-                args = (L.data_ptr(), rhs.data_ptr(), out.data_ptr(), B, N, 1, stream)
+                args = (L.data_ptr(), rhs.data_ptr(), out.data_ptr(), Bv, Nv, Kv,
+                        stream)
             smoke.check(fn(*args) == 0, f"variant {name} {key}: launch failed")
             torch.cuda.synchronize()
             equal = torch.equal(out, L if source == CHOL else X)
             smoke.check(equal or not exact,
                         f"variant {name} {key}: not bit-equal to the plain version")
-            row = {"variant": name, "dtype": key, "bit_equal": equal,
+            row = {"variant": name, "dtype": key, "shape": [Bv, Nv, Kv],
+                   "bit_equal": equal,
                    "kernel_ms": smoke.device_ms(lambda: fn(*args)),
                    "ptxas": {k: v for k, v in ptxas.items()
                              if ("double" in k) == (key == "f64")}}

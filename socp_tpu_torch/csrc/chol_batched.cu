@@ -1,5 +1,6 @@
 // chol_batched.cu -- batched lower Cholesky factor in f64 or f32, one
-// instance per thread block, the trailing matrix in registers.
+// instance per thread block, the trailing matrix in registers (up to n = 32,
+// one instance per warp or several, a row per lane).
 //
 // chol_batched_f64 replaces socp_tpu/ops/pallas_chol.py:_dd_chol_batch_kernel
 // (entry point cholesky_dd_batched): the instance-tiled, right-looking dd32
@@ -48,10 +49,35 @@
 // unrolled by 4, so a column's place in its tile is a constant: a rolled
 // loop with runtime places was slower), and no work above the diagonal but
 // in the diagonal tiles.  Registers set the blocks an SM (3 in f64 at
-// n = 102, 158 registers a thread).  Two schedules, chosen by n: 128
-// threads with 3 tiles each up to n = 108 (the main path's n = 102), 256
-// threads with 4 (f64) or 8 (f32) tiles each above, up to n = 176 (f64)
-// and 252 (f32).
+// n = 102, 158 registers a thread).  Three schedules, chosen by n in
+// launch(): up to n = 32 the small-order one below; 128 threads with 3
+// tiles each up to n = 108 (the main path's n = 102); 256 threads with 4
+// (f64) or 8 (f32) tiles each above, up to n = 176 (f64) and 252 (f32).
+//
+// The small-order schedule (n <= 32: config 4's blocks at n = 10, config
+// 5's H at n = 21 and its 1 x 1 Schur complement).  At such n the tiled
+// block leaves most of its 128 threads idle (6 of them work at n = 10) and
+// ends every step in a block barrier.  Here a warp holds 32 / W instances,
+// W lanes each (W the power of two at or above n), and a block holds
+// kSmallWarps independent warps: no block barrier, only __syncwarp and
+// __shfl_sync.  Lane i of an instance holds row i of its lower triangle in
+// registers, kR entries (kR >= n a compile-time bucket, so every register
+// index is a constant: the step loop is unrolled and breaks at n).  The
+// warp's instances are contiguous in memory, so their lower triangles come
+// in by flat, coalesced cp.async copies into a packed buffer (row i at
+// i (i + 1) / 2: a lane reading its own row touches its own banks), and L
+// goes out the same way, every row whole, zeros above the diagonal.  Step
+// j: the pivot is lane j's entry (j, j), broadcast by __shfl_sync within
+// the instance; every lane takes its square root d and its reciprocal and
+// divides its entry (i, j) by d with div_rn (the lanes that own no entry
+// divide 1, so no division sits in a divergent branch); the column goes
+// to a per-warp double-buffered row in shared memory, one __syncwarp, and
+// each lane applies it to its entries k > j.  At config 5's (65,536, 21)
+// in f64 the copies alone take about half the kernel's time and the chain
+// (square root, reciprocal, division) about a third; a persistent grid
+// that copies a warp's next instances in while it factors these was
+// slower: the warps of an SM already overlap one's copies with another's
+// steps (PERF.md, kernel_variants.py).
 //
 // Agreement with the plain version (ops/chol.py).  Every entry (i, k) of L
 // sees the plain column loop's rounded operations in its order: acc -=
@@ -68,6 +94,7 @@
 
 #include "chol_column.cuh"
 #include "div_rn.cuh"
+#include "packed_copy.cuh"
 
 namespace {
 
@@ -76,7 +103,8 @@ constexpr int kMaxN = 256;    // the published column and pivots' length
 constexpr int kMaxDevices = 64;
 
 // The first schedule: up to 3 x 128 tiles (n <= 108); the second: up to
-// 256 x kSlots2 tiles.
+// 256 x kSlots2 tiles.  (The small-order schedule, n <= kSmallMaxN, is
+// chol_small_kernel below.)
 constexpr int kThreads1 = 128, kSlots1 = 3;
 constexpr int kThreads2 = 256;
 template <typename T>
@@ -304,9 +332,122 @@ int launch_k(const T* H, T* L, int batch, int n, cudaStream_t s) {
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- the small-order schedule: n <= kSmallMaxN, a warp an instance or
+// 32 / W instances a warp
+
+constexpr int kSmallMaxN = 32;
+constexpr int kSmallWarps = 4;       // independent warps a block
+constexpr unsigned kFull = 0xffffffffu;
+
+// The lanes an instance takes at order n: the power of two at or above n.
+__host__ __device__ constexpr int small_lanes(int n) {
+  return n <= 1 ? 1 : n <= 2 ? 2 : n <= 4 ? 4 : n <= 8 ? 8 : n <= 16 ? 16 : 32;
+}
+
+template <typename T, int kW, int kR>
+__global__ void __launch_bounds__(kSmallWarps * 32)
+chol_small_kernel(const T* __restrict__ H, T* __restrict__ L, int batch, int n,
+                  unsigned long long magic) {
+  constexpr int kG = 32 / kW;                 // instances a warp
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int lane = threadIdx.x & 31;
+  const int w = threadIdx.x >> 5;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kSmallWarps + w) * kG;
+  if (first >= batch) return;                 // a whole warp
+  const int count = static_cast<int>(min(static_cast<long long>(kG), batch - first));
+  const int tri = n * (n + 1) / 2;
+  // the warp's packed lower triangles, then its two column buffers
+  T* low = reinterpret_cast<T*>(smem_raw) + w * (kG * tri + 64);
+  T* colv = low + kG * tri;
+  H += static_cast<size_t>(first) * n * n;
+  L += static_cast<size_t>(first) * n * n;
+
+  copy_lower(low, H, count, n, magic, lane);   // packed_copy.cuh
+  __pipeline_wait_prior(0);
+  __syncwarp();                               // (every lane's copies)
+
+  const int g = lane / kW, i = lane % kW;     // instance, row
+  const bool live = g < count && i < n;
+  T* row = low + g * tri + i * (i + 1) / 2;
+  // an instance past the batch's end holds the identity and publishes
+  // zero columns: its pivots stay 1, so it divides nothing by zero
+  T acc[kR];
+#pragma unroll
+  for (int k = 0; k < kR; ++k) {
+    acc[k] = live && k <= i ? row[k] : k == i ? T(1) : T(0);
+  }
+
+#pragma unroll
+  for (int j = 0; j < kR; ++j) {
+    if (j >= n) break;
+    const T p = __shfl_sync(kFull, acc[j], j, kW);  // pivot j, updated
+    const T d = sqrt_rn(p), r = rcp_of(d);
+    // every lane divides (the others 1 by d): no division in a branch
+    const T q = div_rn(live && i >= j ? acc[j] : T(1), d, r);
+    acc[j] = q;
+    T* cv = colv + (j & 1) * 32;              // column j, by parity
+    cv[lane] = g < count ? q : T(0);
+    __syncwarp();
+    const T* mine = cv + g * kW;
+#pragma unroll
+    for (int k = j + 1; k < kR; ++k) {
+      if (k >= n) break;
+      acc[k] = sub_rn(acc[k], mul_rn(q, mine[k]));
+    }
+  }
+
+  // L: the rows into the packed buffer, then out whole, zeros above the
+  // diagonal
+  if (live) {
+#pragma unroll
+    for (int k = 0; k < kR; ++k) {
+      if (k <= i) row[k] = acc[k];
+    }
+  }
+  __syncwarp();
+  for (int idx = lane; idx < count * n * n; idx += 32) {
+    int gi, r, c;
+    split_flat(idx, n, magic, gi, r, c);
+    L[idx] = c <= r ? low[gi * tri + r * (r + 1) / 2 + c] : T(0);
+  }
+}
+
+template <typename T, int kW, int kR>
+int launch_small_k(const T* H, T* L, int batch, int n, cudaStream_t s) {
+  constexpr int kG = 32 / kW;
+  const long long warps = (static_cast<long long>(batch) + kG - 1) / kG;
+  const long long blocks = (warps + kSmallWarps - 1) / kSmallWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      static_cast<size_t>(kSmallWarps) * (kG * n * (n + 1) / 2 + 64) * sizeof(T);
+  chol_small_kernel<T, kW, kR>
+      <<<static_cast<unsigned>(blocks), kSmallWarps * 32, bytes, s>>>(
+          H, L, batch, n, magic_of(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The register row's length: the lanes an instance takes, but 24 for
+// 17 <= n <= 24 (fewer registers at config 5's n = 21).
+template <typename T>
+int launch_small(const T* H, T* L, int batch, int n, cudaStream_t s) {
+  if (batch <= 0 || n <= 0) return 0;         // nothing to factor
+  switch (small_lanes(n)) {
+    case 1: return launch_small_k<T, 1, 1>(H, L, batch, n, s);
+    case 2: return launch_small_k<T, 2, 2>(H, L, batch, n, s);
+    case 4: return launch_small_k<T, 4, 4>(H, L, batch, n, s);
+    case 8: return launch_small_k<T, 8, 8>(H, L, batch, n, s);
+    case 16: return launch_small_k<T, 16, 16>(H, L, batch, n, s);
+    default:
+      return n <= 24 ? launch_small_k<T, 32, 24>(H, L, batch, n, s)
+                     : launch_small_k<T, 32, 32>(H, L, batch, n, s);
+  }
+}
+
 template <typename T>
 int launch(const T* H, T* L, int batch, int n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kSmallMaxN) return launch_small(H, L, batch, n, s);
   const int tiles = tiles_of(n);
   if (tiles <= kThreads1 * kSlots1) {
     return launch_k<T, kThreads1, kSlots1, 3>(H, L, batch, n, s);
@@ -330,4 +471,12 @@ extern "C" int chol_batched_f64(const double* H, double* L, int batch, int n,
 extern "C" int chol_batched_f32(const float* H, float* L, int batch, int n,
                                 void* stream) {
   return launch(H, L, batch, n, stream);
+}
+
+// The schedule launch() takes at order n (both dtypes): the instances a
+// warp holds in the small-order schedule (1 ... 32), or -1 for 128
+// threads with 3 tiles each, -2 for 256 threads.
+extern "C" int chol_batched_schedule(int n) {
+  if (n <= kSmallMaxN) return 32 / small_lanes(n);
+  return tiles_of(n) <= kThreads1 * kSlots1 ? -1 : -2;
 }

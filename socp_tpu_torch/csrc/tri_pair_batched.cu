@@ -1,6 +1,7 @@
 // tri_pair_batched.cu -- batched (L L')^-1 B in f64 or f32: forward
 // substitution on L, then backward substitution on L' read from the same L,
-// one warp per instance and rhs column.
+// one warp per instance and rhs column (up to n = 32, one warp per instance
+// or several, all their columns).
 //
 // tri_pair_batched_f64 replaces
 // socp_tpu/ops/pallas_chol.py:_tri_pair_batch_kernel (entry point
@@ -43,6 +44,27 @@
 // by its own lane (row i by lane i mod 32).  L is read once a pass; the
 // second read mostly hits L2.
 //
+// The small-order schedule (n <= 32: config 4's blocks at n = 10, k = 8
+// and 1, config 5's H at n = 21 and its 1 x 1 Schur complement, k = 1),
+// chosen by n in launch().  Above, a warp an instance and column reserves
+// the panels' shared memory whatever n is (about 17 KB in f64 even at
+// n = 1), which holds 12 warps on an SM, and at k = 8 copies L in 8 times.
+// Here a warp copies the lower triangles of G instances in once (flat,
+// coalesced cp.async into a packed buffer: row i at i (i + 1) / 2, sized by
+// n and G) and solves all their k columns: a column takes n lanes, lane
+// u n + i on row i of column unit u, U = 32 / n units at once, G = max(1,
+// U / k) instances a warp (32 at n = 1, k = 1), the warp's G k units in
+// passes of U.  The columns of a pass run their chains side by side in one
+// instruction stream.  Each step divides on every lane with its own
+// diagonal entry's reciprocal (taken once; lanes not on step j's row divide
+// 1), broadcasts row j's quotient within its column by __shfl_sync, and
+// applies it with one shared-memory read of L: the forward pass reads L by
+// rows, the backward by columns, both free of bank conflicts for a warp of
+// one instance (packed_copy.cuh).  At config 5's (65,536, 21, 1) the copy
+// of L alone takes about a third of the kernel's time and the divisions a
+// quarter; the rest is the chain's 2 n steps, with 11 of 32 lanes idle at
+// n = 21 (PERF.md, kernel_variants.py).
+//
 // Agreement with the plain version (ops/chol.py).  Every x_i sees the plain
 // loops' operations in their order: forward x_i -= L[i][j] * (x_j / L_jj)
 // for j = 0, 1, ..., i - 1, then x_i / L_ii; backward x_i -= L[j][i] *
@@ -56,6 +78,7 @@
 
 #include "chol_column.cuh"
 #include "div_rn.cuh"
+#include "packed_copy.cuh"
 
 namespace {
 
@@ -202,9 +225,104 @@ tri_pair_batched_kernel(const T* __restrict__ L, const T* __restrict__ B,
   }
 }
 
+// ---- the small-order schedule: n <= kSmallMaxN, all k columns of G
+// instances a warp
+
+constexpr int kSmallMaxN = 32;
+constexpr int kSmallWarps = 4;       // independent warps a block
+
+// The instances a warp takes at order n with k columns.
+__host__ __device__ constexpr int small_instances(int n, int k) {
+  return n <= 0 || k <= 0 || k >= kP / n ? 1 : kP / n / k;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kSmallWarps * kP)
+tri_pair_small_kernel(const T* __restrict__ L, const T* __restrict__ B,
+                      T* __restrict__ X, int batch, int n, int k, int per_warp,
+                      unsigned long long magic) {
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  const int ln = threadIdx.x & (kP - 1);
+  const int w = threadIdx.x / kP;
+  const long long first =
+      (static_cast<long long>(blockIdx.x) * kSmallWarps + w) * per_warp;
+  if (first >= batch) return;                 // a whole warp
+  const int count =
+      static_cast<int>(min(static_cast<long long>(per_warp), batch - first));
+  const int tri = n * (n + 1) / 2;
+  T* low = reinterpret_cast<T*>(smem_raw) + w * per_warp * tri;
+  L += static_cast<size_t>(first) * n * n;
+  B += static_cast<size_t>(first) * n * k;
+  X += static_cast<size_t>(first) * n * k;
+
+  copy_lower(low, L, count, n, magic, ln);     // packed_copy.cuh
+  __pipeline_wait_prior(0);
+  __syncwarp();                               // (every lane's copies)
+
+  const int u = ln / n, i = ln - u * n;       // column unit, row
+  const int per_pass = kP / n, units = count * k;
+  for (int base = 0; base < units; base += per_pass) {
+    const int unit = base + u;
+    const bool live = u < per_pass && unit < units;
+    const int g = live ? unit / k : 0;        // instance in the warp
+    const int c = live ? unit - g * k : 0;    // its column
+    const T* Lg = low + g * tri;
+    const T* Li = Lg + i * (i + 1) / 2;       // row i
+    const size_t at = (static_cast<size_t>(g) * n + i) * k + c;
+    const T piv = live ? Li[i] : T(1);
+    const T rp = rcp_of(piv);
+    T x = live ? B[at] : T(0);
+    const int src = u * n;                    // the unit's first lane
+    // (the step loops unrolled by 2: by 4, the f64 instance spills around
+    // the division's slow-path call)
+    // forward: x_i -= L[i][j] (x_j / L_jj), j ascending; x_j / L_jj
+#pragma unroll 2
+    for (int j = 0; j < n; ++j) {
+      T q = div_rn(live && i == j ? x : T(1), piv, rp);
+      q = __shfl_sync(kFull, q, src + j);
+      if (i > j) {
+        x = sub_rn(x, mul_rn(Li[j], q));
+      } else if (i == j) {
+        x = q;
+      }
+    }
+    // backward: x_i -= L[j][i] (x_j / L_jj), j descending; x_j / L_jj
+#pragma unroll 2
+    for (int j = n - 1; j >= 0; --j) {
+      T q = div_rn(live && i == j ? x : T(1), piv, rp);
+      q = __shfl_sync(kFull, q, src + j);
+      if (i < j) {
+        x = sub_rn(x, mul_rn(Lg[j * (j + 1) / 2 + i], q));
+      } else if (i == j) {
+        x = q;
+      }
+    }
+    if (live) X[at] = x;
+  }
+}
+
+template <typename T>
+int launch_small(const T* L, const T* B, T* X, int batch, int n, int k,
+                 cudaStream_t s) {
+  if (batch <= 0 || n <= 0 || k <= 0) return 0;   // nothing to solve
+  const int per_warp = small_instances(n, k);
+  const long long warps = (static_cast<long long>(batch) + per_warp - 1) / per_warp;
+  const long long blocks = (warps + kSmallWarps - 1) / kSmallWarps;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes =
+      static_cast<size_t>(kSmallWarps) * per_warp * (n * (n + 1) / 2) * sizeof(T);
+  tri_pair_small_kernel<T><<<static_cast<unsigned>(blocks), kSmallWarps * kP,
+                             bytes, s>>>(L, B, X, batch, n, k, per_warp,
+                                         magic_of(n));
+  return static_cast<int>(cudaGetLastError());
+}
+
 template <typename T>
 int launch(const T* L, const T* B, T* X, int batch, int n, int k,
            void* stream) {
+  if (n <= kSmallMaxN) {
+    return launch_small(L, B, X, batch, n, k, static_cast<cudaStream_t>(stream));
+  }
   if (n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
   // the attribute once per process and device: the largest allocation
   static bool attribute_set[kMaxDevices] = {};
@@ -243,4 +361,11 @@ extern "C" int tri_pair_batched_f64(const double* L, const double* B,
 extern "C" int tri_pair_batched_f32(const float* L, const float* B, float* X,
                                     int batch, int n, int k, void* stream) {
   return launch(L, B, X, batch, n, k, stream);
+}
+
+// The schedule launch() takes at order n with k columns (both dtypes): the
+// instances a warp holds in the small-order schedule (1 ... 32), or -1 for
+// a warp an instance and column over 32 x 32 blocks.
+extern "C" int tri_pair_batched_schedule(int n, int k) {
+  return n <= kSmallMaxN ? small_instances(n, k) : -1;
 }

@@ -54,6 +54,8 @@ KERNELS.update({
 QUERIES = {
     "chol_single_scratch_ints": ("chol_single", (_I,)),
     "tri_pair_single_max_n": ("tri_pair_single", (_I,)),
+    "chol_batched_schedule": ("chol_batched", (_I,)),
+    "tri_pair_batched_schedule": ("tri_pair_batched", (_I, _I)),
 }
 # checks the card runs on the kernels' building blocks (csrc/div_rn.cu)
 CHECKS = {f"div_rn_{t}": ("div_rn", (_P, _P, _P, ctypes.c_long, _P))

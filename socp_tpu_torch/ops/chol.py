@@ -45,10 +45,13 @@ never fused into an FMA, and the card's kernels use `__fmul_rn` /
 for bit in both types.  The `*_launches` counters count kernel-wrapper
 launches (never plain calls), the f64 kernels' under the plain names and
 the f32 kernels' under `*_launches_f32`, so a run can show which kernels
-it went through.  Every launch is one CUDA kernel; above n = 32
-`chol_single`'s entry point also zeroes the tile flags in a small scratch
-buffer the wrapper allocates (csrc/chol_single.cu), one memset beside the
-kernel.
+it went through.  Each batched kernel picks its schedule by n inside its
+source, before it launches: up to n = 32 a warp holds one instance or
+several (`batched_schedule` names the choice), above that the Cholesky's
+register tiles and the pair solve's 32 x 32 panels.  Every launch is one
+CUDA kernel; above n = 32 `chol_single`'s entry point also zeroes the tile
+flags in a small scratch buffer the wrapper allocates (csrc/chol_single.cu),
+one memset beside the kernel.
 """
 
 from __future__ import annotations
@@ -162,12 +165,28 @@ def _stream(t: torch.Tensor) -> int:
 
 
 @functools.lru_cache(maxsize=None)
-def _query(name: str, arg: int) -> int:
+def _query(name: str, *args: int) -> int:
     """A layout query of a kernel's source (csrc/*.cu), which alone knows
-    its tiles and shared memory."""
+    its tiles, schedules and shared memory."""
     from socp_tpu_torch.ops import _build
 
-    return _build.kernel(name)(arg)
+    return _build.kernel(name)(*args)
+
+
+def batched_schedule(name: str, n: int, k: int = 1) -> str:
+    """The schedule batched kernel `name` ("chol_batched" or
+    "tri_pair_batched") launches at order n (and k rhs columns), as its
+    source's launch() chooses it by n before any launch: "warp x G" for the
+    small-order schedule (n <= 32, G instances a warp), else "tiles 128x3"
+    or "tiles 256" (chol_batched) or "panels" (tri_pair_batched).  Builds
+    the source on first use (a CUDA machine only)."""
+    code = (_query("chol_batched_schedule", n) if name == "chol_batched"
+            else _query("tri_pair_batched_schedule", n, k))
+    if code > 0:
+        return f"warp x {code}"
+    if name == "chol_batched":
+        return "tiles 128x3" if code == -1 else "tiles 256"
+    return "panels"
 
 
 def _launch(name: str, t: torch.Tensor, *args):

@@ -122,7 +122,7 @@ def _microtile_order(H: torch.Tensor) -> torch.Tensor:
     column j and divided by the pivot's square root -- then the rest of the
     trailing lower triangle takes column j, and entry (j + 2, j + 2) is
     published as the next pivot.  The kernel's 4 x 4 register tiles and its
-    two schedules (by n) change only which thread does which entry."""
+    two schedules above n = 32 change only which thread does which entry."""
     n = H.shape[-1]
     M = torch.tril(H)                      # the kernel reads only this
     L = torch.zeros_like(H)
@@ -179,14 +179,87 @@ def _batched_pair_order(L: torch.Tensor, rhs: torch.Tensor, nb: int = 32) -> tor
     return X
 
 
+def _small_lanes(n: int) -> int:
+    """The lanes an instance takes in chol_batched's small-order schedule:
+    the power of two at or above n (csrc/chol_batched.cu small_lanes)."""
+    return 1 << max(0, n - 1).bit_length()
+
+
+def _warp_row_order(H: torch.Tensor) -> torch.Tensor:
+    """chol_batched's small-order schedule (n <= 32): a warp holds
+    G = 32 / W instances (W = `_small_lanes(n)` lanes each; the batch's
+    last warp is filled with identity instances), lane i holding row i of
+    its instance's lower triangle.  Step j: the pivot is row j's entry j;
+    every lane divides its entry j by the pivot's square root (lanes above
+    row j divide 1), publishes the quotient as column j (an instance past
+    the batch publishes zeros), and subtracts quotient x column entry from
+    each of its entries k > j.  The identity instances' pivots must stay 1
+    (they divide nothing by zero; their factors are never written)."""
+    B, n, _ = H.shape
+    G = 32 // _small_lanes(n)
+    pad = -B % G
+    eye = torch.eye(n, dtype=H.dtype).expand(pad, n, n)
+    acc = torch.cat([torch.tril(H), eye]).reshape(-1, G, n, n)  # (warp, g, i, k)
+    live_inst = torch.arange(B + pad).reshape(-1, G) < B
+    row = torch.arange(n)
+    for j in range(n):
+        d = torch.sqrt(acc[:, :, j, j])                         # lane j's pivot
+        assert bool((d[~live_inst] == 1).all())
+        own = live_inst[:, :, None] & (row >= j)
+        num = torch.where(own, acc[:, :, :, j], torch.ones_like(acc[:, :, :, j]))
+        q = num / d[:, :, None]
+        acc[:, :, :, j] = q
+        cv = torch.where(live_inst[:, :, None], q, torch.zeros_like(q))
+        acc[:, :, :, j + 1:] = acc[:, :, :, j + 1:] - q[..., None] * cv[:, :, None, j + 1:]
+    return torch.tril(acc).reshape(-1, n, n)[:B]
+
+
+def _warp_pair_order(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
+    """tri_pair_batched's small-order schedule (n <= 32): a warp solves all
+    k columns of G instances, U = 32 // n column units at once (lanes
+    u n + i), G = max(1, U // k), the warp's G k units in passes of U.  In a
+    pass, each unit's chain: forward, step j divides row j's x by L_jj, and
+    every row i > j subtracts L[i][j] times it; backward, step j (n - 1
+    down) the same for rows i < j with L[j][i].  The units of a pass step
+    together; each unit's own operations keep the plain order."""
+    B, n, k = rhs.shape
+    per_pass = 32 // n
+    G = 1 if k >= per_pass else per_pass // k
+    X = torch.empty_like(rhs)
+    diag = torch.diagonal(L, dim1=1, dim2=2)
+    for first in range(0, B, G):
+        units = [(first + u // k, u % k) for u in range(min(G, B - first) * k)]
+        for base in range(0, len(units), per_pass):
+            inst, col = map(torch.tensor, zip(*units[base:base + per_pass]))
+            Lp, piv = L[inst], diag[inst]
+            x = rhs[inst, :, col].clone()                       # (units, n)
+            for j in range(n):
+                q = x[:, j] / piv[:, j]
+                x[:, j + 1:] = x[:, j + 1:] - Lp[:, j + 1:, j] * q[:, None]
+                x[:, j] = q
+            for j in range(n - 1, -1, -1):
+                q = x[:, j] / piv[:, j]
+                x[:, :j] = x[:, :j] - Lp[:, j, :j] * q[:, None]
+                x[:, j] = q
+            X[inst, :, col] = x
+    return X
+
+
 # n across the micro-tile (4) and panel (32) edges, the Cholesky's second
 # schedule (above n = 108) and config 3's n = 102, up to the largest order
-# the wrappers take in f64
+# the wrappers take in f64 (the microtile and panel schedules, which the
+# card runs above n = 32); then the small-order schedules (n <= 32) across
+# their lane buckets (half a warp an instance up to n = 16), config 4's
+# n = 10 (k = 8) and config 5's n = 21 and 1
 BATCHED_SCHEDULE_CASES = (
     [("chol", d, n, 0) for d in ("f64", "f32")
      for n in (1, 2, 3, 4, 5, 31, 32, 33, 65, 102, 108, 109, 169)]
     + [("pair", d, n, k) for d in ("f64", "f32")
-       for n in (1, 2, 31, 32, 33, 65, 102, 169) for k in (1, 3)])
+       for n in (1, 2, 31, 32, 33, 65, 102, 169) for k in (1, 3)]
+    + [("warp_chol", d, n, 0) for d in ("f64", "f32")
+       for n in (1, 2, 8, 10, 16, 17, 21, 31, 32)]
+    + [("warp_pair", d, n, k) for d in ("f64", "f32")
+       for n in (1, 2, 8, 10, 16, 17, 21, 31, 32) for k in (1, 3, 8)])
 
 
 @pytest.mark.parametrize("schedule,dtype,n,k", BATCHED_SCHEDULE_CASES)
@@ -196,11 +269,13 @@ def test_batched_kernel_schedule_is_the_plain_order(schedule, dtype, n, k):
     rng = np.random.default_rng(1000 + n + k)
     H = torch.as_tensor(_spd(rng, n, kappa=1e8 if dtype == "f64" else 1e4)[:3],
                         dtype=torch.float64 if dtype == "f64" else torch.float32)
-    if schedule == "pair":
+    if schedule.endswith("pair"):
         L = chol.chol_batched_plain(H)
         rhs = torch.as_tensor(rng.standard_normal((3, n, k)), dtype=H.dtype)
-        got, want = _batched_pair_order(L, rhs), chol.tri_pair_batched_plain(L, rhs)
+        order = _warp_pair_order if schedule == "warp_pair" else _batched_pair_order
+        got, want = order(L, rhs), chol.tri_pair_batched_plain(L, rhs)
     else:
-        got, want = _microtile_order(H), chol.chol_batched_plain(H)
+        order = _warp_row_order if schedule == "warp_chol" else _microtile_order
+        got, want = order(H), chol.chol_batched_plain(H)
     assert bool(torch.isfinite(want).all())
     assert torch.equal(got, want)

@@ -48,11 +48,14 @@ def _spd(seed, B, n, kappa=1e8, neg=False):
 
 # (B, n): config 3's shapes, both sides of the micro-tile (4) and panel (32)
 # edges, the Cholesky's second schedule (above n = 108), the largest n,
-# config 4's blocks (K = 10,240, nb = 10) and a chunk of config 5's
-# scenarios (2048, nv = 21)
+# config 4's blocks (K = 10,240, nb = 10), a chunk of config 5's
+# scenarios (2048, nv = 21), all of them (65,536, nv = 21) and their 1 x 1
+# Schur complements, and n = 16 and 17 either side of the small-order
+# schedule's half-warp edge
 BATCHED_F64 = [(256, 102), (8, 37), (256, 3), (4, 1), (64, 2), (64, 5),
                (64, 31), (64, 32), (64, 33), (64, 65), (64, 108), (64, 109),
-               (16, 169), (4096, 102), (10240, 10), (2048, 21)]
+               (16, 169), (4096, 102), (10240, 10), (2048, 21), (65536, 1),
+               (65536, 21), (64, 16), (64, 17)]
 
 
 @pytest.mark.parametrize("B,n", BATCHED_F64)
@@ -87,10 +90,12 @@ def _batched_inputs(dtype, B, n, card, seed=None):
             torch.as_tensor(rhs, dtype=dtype, device=card))
 
 
+@pytest.mark.parametrize("n", [102, 10, 21])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_batched_kernels_back_to_back_calls_give_the_same_bits(card, dtype):
-    """Calls queued on one stream with no sync between them."""
-    H, rhs = _batched_inputs(dtype, 256, 102, card)
+def test_batched_kernels_back_to_back_calls_give_the_same_bits(card, dtype, n):
+    """Calls queued on one stream with no sync between them, at config 3's
+    n and at the small-order schedule's n = 10 and 21."""
+    H, rhs = _batched_inputs(dtype, 256, n, card)
     Ls = [chol.chol_batched(H) for _ in range(3)]
     Xs = [chol.tri_pair_batched(L, rhs) for L in Ls]
     torch.cuda.synchronize()
@@ -100,12 +105,14 @@ def test_batched_kernels_back_to_back_calls_give_the_same_bits(card, dtype):
     assert torch.equal(Xs[0], chol.tri_pair_batched_plain(Ls[0], rhs))
 
 
+@pytest.mark.parametrize("n", [102, 10, 21])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_batched_kernels_replay_in_a_cuda_graph(card, dtype):
-    """chol_batched then tri_pair_batched at B = 256, n = 102 captured by
-    torch.cuda.graph, replayed on the captured inputs and on new ones
-    written into them: bit-equal to the plain versions."""
-    H, rhs = _batched_inputs(dtype, 256, 102, card)
+def test_batched_kernels_replay_in_a_cuda_graph(card, dtype, n):
+    """chol_batched then tri_pair_batched at B = 256 (n = 102, and the
+    small-order schedule's 10 and 21) captured by torch.cuda.graph,
+    replayed on the captured inputs and on new ones written into them:
+    bit-equal to the plain versions."""
+    H, rhs = _batched_inputs(dtype, 256, n, card)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):                  # warm-up, as torch asks
@@ -118,7 +125,7 @@ def test_batched_kernels_replay_in_a_cuda_graph(card, dtype):
         X = chol.tri_pair_batched(L, rhs)
     for seed in (None, 11):
         if seed is not None:
-            H2, rhs2 = _batched_inputs(dtype, 256, 102, card, seed=seed)
+            H2, rhs2 = _batched_inputs(dtype, 256, n, card, seed=seed)
             H.copy_(H2)
             rhs.copy_(rhs2)
         graph.replay()
@@ -127,14 +134,34 @@ def test_batched_kernels_replay_in_a_cuda_graph(card, dtype):
         assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
 
 
+@pytest.mark.parametrize("n", [102, 10, 21])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
-def test_non_pd_gives_non_finite_factor(card, dtype):
+def test_non_pd_gives_non_finite_factor(card, dtype, n):
     """Every instance of a batch whose smallest eigenvalue is negative gets
-    a non-finite factor, and the call returns."""
-    H = _spd(7, 16, 102, neg=True) if dtype == torch.float64 else _spd32(7, 16, 102, neg=True)
+    a non-finite factor, and the call returns (n = 10 and 21 in the
+    small-order schedule)."""
+    H = _spd(7, 16, n, neg=True) if dtype == torch.float64 else _spd32(7, 16, n, neg=True)
     L = chol.chol_batched(torch.as_tensor(H, dtype=dtype, device=card))
     torch.cuda.synchronize()
     assert bool((~torch.isfinite(L)).flatten(1).any(1).all())
+
+
+def test_batched_schedules_are_chosen_by_n(card):
+    """The sources' launch() choices: a warp holds 32 / W instances of
+    the Cholesky up to n = 32 (W the power of two at or above n), and the
+    pair solve's G = max(1, (32 // n) // k); the register tiles and panels
+    above."""
+    want_chol = {1: "warp x 32", 2: "warp x 16", 8: "warp x 4",
+                 10: "warp x 2", 16: "warp x 2", 17: "warp x 1",
+                 21: "warp x 1", 32: "warp x 1", 33: "tiles 128x3",
+                 108: "tiles 128x3", 109: "tiles 256"}
+    assert {n: chol.batched_schedule("chol_batched", n)
+            for n in want_chol} == want_chol
+    want_pair = {(1, 1): "warp x 32", (1, 8): "warp x 4", (2, 3): "warp x 5",
+                 (10, 1): "warp x 3", (10, 8): "warp x 1", (21, 1): "warp x 1",
+                 (32, 3): "warp x 1", (33, 1): "panels"}
+    assert {nk: chol.batched_schedule("tri_pair_batched", *nk)
+            for nk in want_pair} == want_pair
 
 
 def test_kernels_refuse_what_they_cannot_hold(card):
@@ -492,10 +519,12 @@ def _spd32(seed, B, n, neg=False):
     return np.asarray(_spd(seed, B, n, kappa=1e4, neg=neg), np.float32)
 
 
-# (B, n) in f32: as BATCHED_F64, up to n = 240, the largest the wrapper takes
+# (B, n) in f32: as BATCHED_F64, up to n = 240, the largest the wrapper
+# takes, with configs 4's and 5's shapes (their f32-carry runs)
 BATCHED_F32 = [(256, 102), (8, 240), (4, 1), (64, 2), (64, 5), (64, 31),
                (64, 32), (64, 33), (64, 65), (64, 108), (64, 109), (16, 169),
-               (4096, 102)]
+               (4096, 102), (65536, 1), (65536, 21), (10240, 10), (64, 16),
+               (64, 17)]
 
 
 @pytest.mark.parametrize("B,n", BATCHED_F32)
@@ -511,9 +540,10 @@ def test_f32_chol_batched_bit_equal_to_plain(card, B, n):
 
 @pytest.mark.parametrize("B,n,k", [(256, 102, 1), (8, 240, 1), (8, 37, 3)]
                          + [(B, n, k) for B, n in BATCHED_F32[2:] for k in (1, 3)]
-                         + [(8, 240, 3)])
+                         + [(8, 240, 3), (10240, 10, 8)])
 def test_f32_tri_pair_batched_bit_equal_to_plain(card, B, n, k):
-    """k = 3 at n = 240 is new: one block no longer holds the rhs beside L."""
+    """k = 3 at n = 240 is new: one block no longer holds the rhs beside L.
+    (10240, 10, 8) is config 4's H^-1 A' in its f32-carry run."""
     L = chol.chol_batched(torch.as_tensor(_spd32(n + k, B, n), device=card))
     rhs = torch.as_tensor(np.random.default_rng(k).standard_normal((B, n, k)),
                           dtype=torch.float32, device=card)
