@@ -12,13 +12,19 @@ Phases, each printing one JSON line to stdout:
               blocks (B = 10,240, n = 10, also k = 8) and across the
               micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and
               3, and config 5's (65,536 scenarios and a chunk of 2048, n =
-              21 and the 1 x 1 Schur complement); a matrix that is not
+              21 and the 1 x 1 Schur complement), and either side of where
+              the tile dataflow and the block panels take over, up to
+              config 2's n = 500 at B = 2 and 64; a matrix that is not
               positive definite must give a non-finite factor (n = 102, 10,
-              21).  Timed at config 3's, config 4's and config 5's shapes
-              (n = 21 and 1 at 65,536); every shape named with the schedule
-              its kernel's source chose (`ops.chol.batched_schedule`: the
-              small-order "warp x G" up to n = 32, register tiles or panels
-              above).
+              21, 500).  Timed at config 3's, config 4's and config 5's
+              shapes (n = 21 and 1 at 65,536) and above the register tiles
+              (F64_LARGE: (2, 500), (64, 500), (64, 200), k = 1), there
+              beside the former route, B calls of the single kernels timed
+              as a loop (former_call_ms, former_kernel_ms); every shape
+              named with the schedule its kernel's source chose
+              (`ops.chol.batched_schedule`: the small-order "warp x G" up
+              to n = 32, register tiles or panels above, the tile dataflow
+              or block panels above those).
               Timed two ways (`timed`): call_ms, CUDA events around one
               call, host work included (median of 15), and kernel_ms, the
               device time of the kernels one call enqueues, from
@@ -61,11 +67,15 @@ Phases, each printing one JSON line to stdout:
               with the port's kernels' device ms and launches in a solve.
   7n. single_native  configs 1 and 2 with native_dd=True (ConstGram: NB = 3
               with orthant rows, p = 5; NB = 1, l = 500, p = 1), as phase 7.
-  7b. large_batch  solve_batch of two config-2 instances (seeds 0 and 1) on
-              the card: n = 500 is above the batched kernels' largest order,
-              so the routers run H's factor and solves through the single
-              kernels an instance at a time; both OPTIMAL, pcost within 1e-8
-              of each solved alone, the launch ratios of that route.
+  7b. large_batch  solve_batch of config-2 instances (portfolio(s, n=500,
+              k=20)) on the card, B = 2 (s = 0, 1) and B = 64 (s = 0 ...
+              63): H's factor in chol_batched's tile dataflow, its solves
+              in tri_pair_batched's block panels, one launch each; every
+              lane OPTIMAL at the 1e-8 tolerances, both lanes of B = 2 and
+              lanes 0, 9, ..., 63 of B = 64 within 1e-8 (pcost) of each
+              solved alone, the launch ratios of a batched p = 1 solve and
+              no single-kernel launch; then a profile of the B = 64 solve
+              ("large_batch64").
   7c. block_schur  BASELINE config 4 (scripts/bench_all.py:144-170):
               random_block_problem(0, K=10240, nb=10, p=8, block dims l = 4,
               qs = (6,)), 102,400 vars, through parallel.schur.solve_block on
@@ -151,8 +161,9 @@ Phases, each printing one JSON line to stdout:
               at n = 1 ... 1000 with k = 1, 4, 5; non-PD inputs give
               non-finite factors; timed as phase 3 at B = 4096, n = 102, at
               configs 4's and 5's shapes (their f32-carry runs; schedules
-              named as in phase 3) and single at config 2's shapes in this
-              mode and P1's n = 128.
+              named as in phase 3), at (64, 500) and (64, 256) beside the
+              former route, and single at config 2's shapes in this mode
+              and P1's n = 128.
   9. f32factor  config 3 with SolverConfig(factor_dtype="float32") through
               prepare_batch on "cuda" (TF32 off is asserted first): every
               instance OPTIMAL at the reference's relaxed tolerances, pcost
@@ -302,17 +313,31 @@ SINGLE_PAIR_AT = {"f64": ((1, 1), (4, 1), (5, 1), (8, 1), (50, 1), (50, 5),
                   "f32": ((1, 1), (128, 1), (500, 1))}
 # (B, n) of the batched kernels' checks: config 3's shapes, config 4's
 # blocks (with k = P4 too), then both sides of the micro-tile (4) and
-# panel (32) edges and of the Cholesky's second schedule (above n = 108),
-# up to the largest n the wrappers take, config 5's shapes, and n = 16
-# and 17 either side of the small-order schedule's half-warp edge
+# panel (32) edges and of where the tile dataflow takes over (n = 109),
+# config 5's shapes, n = 16 and 17 either side of the small-order
+# schedule's half-warp edge, both sides of the block panels' start (257)
+# and of the orders the batched kernels took before (176 in f64, 252 in
+# f32), up to config 2's n = 500 at B = 2 and B_LARGE
 F64_BATCHED = ((B_MAIN, N_MAIN + 2), (K4, NB4), (8, 37), (B_MAIN, 3), (64, 1),
                (64, 2), (64, 4), (64, 5), (64, 31), (64, 32), (64, 33),
                (64, 65), (64, 108), (64, 109), (64, 169), (S5, N5 + 1),
-               (CHUNK5, N5 + 1), (S5, 1), (CHUNK5, 1), (64, 16), (64, 17))
+               (CHUNK5, N5 + 1), (S5, 1), (CHUNK5, 1), (64, 16), (64, 17),
+               (64, 176), (64, 177), (64, 200), (64, 256), (64, 257),
+               (2, 500), (64, 500))
 F32_BATCHED = ((B_MAIN, 1), (B_MAIN, 3), (B_MAIN, 37), (B_MAIN, 102),
                (64, 2), (64, 5), (64, 31), (64, 32), (64, 33), (64, 65),
                (64, 108), (64, 109), (256, 169), (256, 240), (K4, NB4),
-               (S5, N5 + 1), (CHUNK5, N5 + 1), (S5, 1), (64, 16), (64, 17))
+               (S5, N5 + 1), (CHUNK5, N5 + 1), (S5, 1), (64, 16), (64, 17),
+               (64, 252), (64, 253), (64, 256), (64, 257), (64, 500))
+# above the register tiles and the warp panels: the batched kernels timed
+# beside the route they replace (B calls of the single kernels), at config
+# 2's width (B = 2 as in large_batch, B_LARGE as in large_batch64) and
+# n = 200 (f64), n = 500 and 256 (f32); B_LARGE instances of config 2 in
+# the large_batch phase, LANES_LARGE of them held to their solo solves
+F64_LARGE = ((2, 500), (64, 500), (64, 200))
+F32_LARGE = ((64, 500), (64, 256))
+B_LARGE = 64
+LANES_LARGE = tuple(range(0, B_LARGE, 9))
 KAPPA = {"f64": 1e8, "f32": 1e4}
 F32_SINGLE_NS = (1, 2, 5, 31, 32, 33, 50, 64, 65, 128, 240, 241, 333, 500,
                  768, 1000)
@@ -589,13 +614,24 @@ def phase_build():
           "ptxas": report})
 
 
-def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
+def former_route(f):
+    """The route the routers took above the batched kernels' orders before
+    one launch took them all: f() makes B calls of a single kernel, one
+    after another; timed as a loop, by events (former_call_ms) and by
+    device time (former_kernel_ms)."""
+    kernel_ms, by = device_ms(f)
+    return {"former_call_ms": cuda_ms(f), "former_kernel_ms": kernel_ms,
+            "former_kernel_ms_by": by}
+
+
+def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,), former=False):
     """chol_batched at (B, nv) and tri_pair_batched at (B, nv, k) for each
     k in ks (by default config 3's shape: B = 4096, n = 102, k = 1) in one
     dtype, each beside its library call and plain version, with its bound:
     {"chol_batched": ..., "tri_pair_batched": at ks[0],
     "tri_pair_batched k=K": at each further k}, each with the schedule its
-    kernel's source chose at that shape."""
+    kernel's source chose at that shape; with `former`, also B calls of the
+    single kernels on the same inputs (former_route)."""
     from socp_tpu_torch.ops import chol
 
     key = "f64" if dtype == torch.float64 else "f32"
@@ -615,6 +651,9 @@ def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
         lambda: chol.chol_batched_plain(H),
         bound=bound(tri + full, B * chol_flops(nv), rate),
         schedule=schedule("chol_batched", nv))}
+    if former:
+        out["chol_batched"].update(former_route(
+            lambda: [chol.chol_single(h) for h in H]))
     for k in ks:
         rhs = torch.as_tensor(rng.standard_normal((B, nv, k)), dtype=dtype,
                               device="cuda")
@@ -625,18 +664,24 @@ def batched_timing(dtype, rng, B=B_MAIN, nv=N_MAIN + 2, ks=(1,)):
             lambda rhs=rhs: chol.tri_pair_batched_plain(L, rhs),
             bound=bound(tri + 2 * rb, B * 2 * nv * nv * k, rate),
             schedule=schedule("tri_pair_batched", nv, k))
+        if former:
+            out["tri_pair_batched" if k == ks[0] else f"tri_pair_batched k={k}"].update(
+                former_route(lambda rhs=rhs: [chol.tri_pair_single(a, b)
+                                              for a, b in zip(L, rhs)]))
     return out
 
 
 def phase_kernels():
     """The f64 batched kernels against their plain versions, bit for bit,
     at config 3's, config 4's and config 5's shapes and across the
-    micro-tile, panel and schedule edges (F64_BATCHED), k = 1 and 3 (and
-    P4 at config 4's blocks); the non-PD check; timings at config 3's
+    micro-tile, panel and schedule edges up to config 2's n = 500
+    (F64_BATCHED), k = 1 and 3 (and P4 at config 4's blocks); the non-PD
+    check (also at n = 500, the tile dataflow); timings at config 3's
     shape, at config 4's (B = 10,240, n = 10; the pair solve at k = 8 and
-    1) and at config 5's (B = 2048 and 65,536, n = 21, k = 1; the 1 x 1
-    Schur complement at 65,536).  Every checked shape is named with its
-    schedule."""
+    1), at config 5's (B = 2048 and 65,536, n = 21, k = 1; the 1 x 1
+    Schur complement at 65,536) and above the register tiles (F64_LARGE,
+    k = 1, beside the former route).  Every checked shape is named with
+    its schedule."""
     from socp_tpu_torch.ops import chol
 
     rng = np.random.default_rng(SEED)
@@ -659,7 +704,8 @@ def phase_kernels():
                 chol.batched_schedule("tri_pair_batched", n, k))
 
     nv = N_MAIN + 2
-    for n in (nv, NB4, N5 + 1):     # the tiles and the small-order schedule
+    # the register tiles, the small-order schedule and the tile dataflow
+    for n in (nv, NB4, N5 + 1, 500):
         bad = torch.as_tensor(spd_batch(rng, 64, n, neg=True), device=dev)
         for f in (chol.chol_batched, chol.chol_batched_plain):
             Lb = f(bad)
@@ -682,6 +728,13 @@ def phase_kernels():
         at = f"B={B},n={n}"
         shapes["config5"]["chol_batched"][at] = t5["chol_batched"]
         shapes["config5"]["tri_pair_batched"][f"{at},k=1"] = t5["tri_pair_batched"]
+    # above the register tiles and the warp panels, beside the former route
+    shapes["large"] = {"chol_batched": {}, "tri_pair_batched": {}}
+    for B, n in F64_LARGE:
+        t = batched_timing(torch.float64, rng, B, n, former=True)
+        at = f"B={B},n={n}"
+        shapes["large"]["chol_batched"][at] = t["chol_batched"]
+        shapes["large"]["tri_pair_batched"][f"{at},k=1"] = t["tri_pair_batched"]
     emit({"phase": "kernels", "batched": [list(x) for x in F64_BATCHED],
           "ks": [1, 3], "block_ks": [1, 3, P4], "bit_equal": True,
           "schedules": schedules,
@@ -872,8 +925,10 @@ def _category(name):
     for key, cat in (("nccl", "nccl"),      # ncclDevKernel_AllReduce_...
                      ("chol_batched_kernel", "chol_batched"),
                      ("chol_small_kernel", "chol_batched"),   # n <= 32
+                     ("chol_batched_tiles_kernel", "chol_batched"),
                      ("tri_pair_batched_kernel", "tri_pair_batched"),
                      ("tri_pair_small_kernel", "tri_pair_batched"),
+                     ("tri_pair_batched_rows_kernel", "tri_pair_batched"),
                      ("chol_single_", "chol_single"),
                      ("tri_pair_single_kernel", "tri_pair_single"),
                      ("gemm", "cublas"), ("gemv", "cublas"), ("cutlass", "cublas"),
@@ -1044,55 +1099,77 @@ def phase_single(native_dd=False):
 
 
 def phase_large_batch():
-    """solve_batch of two config-2 instances (portfolio(s, n=500, k=20),
-    s = 0, 1) on the card: n = 500 is above what the batched kernels take
-    (169 in f64), so the routers factor H and solve with it an instance at
-    a time through the single kernels.  The 1 x 1 Schur complement (p = 1)
-    stays on the batched kernels.  Held: both OPTIMAL at 1e-8, pcost within
-    1e-8 of each instance solved alone, and the launch ratios (a factor: 2
-    chol_single for H, 1 chol_batched for S, 2 tri_pair_single for
-    H^-1 A'; a back-solve: 4 tri_pair_single, 1 tri_pair_batched)."""
+    """solve_batch of config-2 instances (portfolio(s, n=500, k=20)) on the
+    card, B = 2 (s = 0, 1) and B = B_LARGE (s = 0 ... 63): H (n = 500) is
+    factored by chol_batched's tile dataflow and solved by
+    tri_pair_batched's block panels, the 1 x 1 Schur complement (p = 1) by
+    their small-order schedules, one launch a factor or solve.  Held: every
+    lane OPTIMAL, not inaccurate, at 1e-8 (pres, dres, and gap or relgap);
+    both lanes at B = 2 and LANES_LARGE at B_LARGE against each instance
+    solved alone (the same status, pcost within 1e-8); the launch ratios of
+    a p = 1 batched solve (a factor: 2 chol_batched, H and S, and 1
+    tri_pair_batched, H^-1 A'; a back-solve: 3 tri_pair_batched; so
+    tri_pair_batched = 5 chol_batched + 3) and no single-kernel launch.
+    Returns each run's launches and the B_LARGE solve with its seconds, for
+    the profile "large_batch64"."""
     from socp_tpu_torch import Status, solve, solve_batch
     from socp_tpu_torch.models.portfolio import portfolio
 
-    probs = [portfolio(s, n=500, k=20)[0] for s in (SEED, SEED + 1)]
-    stack = {f: np.stack([getattr(p, f) for p in probs])
-             for f in ("c", "G", "h", "A", "b")}
+    probs = [portfolio(s, n=500, k=20)[0] for s in range(SEED, SEED + B_LARGE)]
     dims = probs[0].dims
+    launches_by_run, profiled = {}, None
+    for label, B, lanes in (("large_batch", 2, (0, 1)),
+                            ("large_batch64", B_LARGE, LANES_LARGE)):
+        stack = {f: np.stack([getattr(p, f) for p in probs[:B]])
+                 for f in ("c", "G", "h", "A", "b")}
 
-    def run():
-        return solve_batch(stack["c"], stack["G"], stack["h"], dims,
-                           A=stack["A"], b=stack["b"], device="cuda")
+        def run(stack=stack):
+            return solve_batch(stack["c"], stack["G"], stack["h"], dims,
+                               A=stack["A"], b=stack["b"], device="cuda")
 
-    run()                                            # warm-up
-    torch.cuda.synchronize()
-    reset_counts()
-    t0 = time.perf_counter()
-    sols = run()
-    solve_s = time.perf_counter() - t0
-    launches = read_counts()
-    factors, backsolves = launches["chol_batched"], launches["tri_pair_batched"]
-    check(factors >= 2 and launches["chol_single"] == 2 * factors
-          and launches["tri_pair_single"] == 2 * (factors + 2 * backsolves),
-          f"large_batch: launch ratios {launches}")
-    none_of(launches, F32_KERNELS, "large_batch")
-    singles = [solve(p, device="cuda") for p in probs]
-    rels = []
-    for i, (sol, one) in enumerate(zip(sols, singles)):
-        check(sol.status == one.status == Status.OPTIMAL and not sol.inaccurate,
-              f"large_batch lane {i}: {sol} vs alone {one}")
-        check(sol.pres <= 1e-8 and sol.dres <= 1e-8
-              and (sol.gap <= 1e-8 or sol.relgap <= 1e-8),
-              f"large_batch lane {i} misses the strict 1e-8 tolerances: {sol}")
-        rels.append(abs(sol.pcost - one.pcost) / max(1.0, abs(one.pcost)))
-        check(rels[-1] <= 1e-8, f"large_batch lane {i}: pcost {sol.pcost} vs "
-                                f"alone {one.pcost}")
-    emit({"phase": "large_batch", "config": "solve_batch of portfolio(s, n=500, "
-          "k=20), s = 0, 1", "B": 2, "n": 500, "solve_ms": solve_s * 1e3,
-          "iterations": [s.iterations for s in sols],
-          "iterations_alone": [s.iterations for s in singles],
-          "pcost_rel_alone": rels, "launches": launches})
-    return launches
+        run()                                        # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        sols = run()
+        solve_s = time.perf_counter() - t0
+        launches = read_counts()
+        chols, tris = launches["chol_batched"], launches["tri_pair_batched"]
+        check(chols >= 4 and chols % 2 == 0 and tris == 5 * chols + 3
+              and launches["chol_single"] == launches["tri_pair_single"] == 0,
+              f"{label}: launch ratios {launches}")
+        none_of(launches, F32_KERNELS, label)
+        for i, sol in enumerate(sols):
+            check(sol.status == Status.OPTIMAL and not sol.inaccurate,
+                  f"{label} lane {i}: {sol}")
+            check(sol.pres <= 1e-8 and sol.dres <= 1e-8
+                  and (sol.gap <= 1e-8 or sol.relgap <= 1e-8),
+                  f"{label} lane {i} misses the strict 1e-8 tolerances: {sol}")
+        alone, rels = {}, {}
+        for i in lanes:
+            one = solve(probs[i], device="cuda")
+            alone[i] = one.iterations
+            rels[i] = abs(sols[i].pcost - one.pcost) / max(1.0, abs(one.pcost))
+            check(one.status == sols[i].status and rels[i] <= 1e-8,
+                  f"{label} lane {i}: {sols[i]} vs alone {one}")
+        lockstep = chols // 2 - 1
+        emit({"phase": "large_batch", "config": label,
+              "source": f"solve_batch of portfolio(s, n=500, k=20), s = 0 ... "
+                        f"{B - 1}", "B": B, "n": 500,
+              "solve_ms": solve_s * 1e3, "lockstep_iterations": lockstep,
+              "ms_per_iteration": solve_s * 1e3 / lockstep,
+              "solves_per_s": B / solve_s,
+              "iterations": [s.iterations for s in sols],
+              "max_gap": max(s.gap for s in sols),
+              "max_pres": max(s.pres for s in sols),
+              "max_dres": max(s.dres for s in sols),
+              "lanes_alone": list(lanes),
+              "iterations_alone": [alone[i] for i in lanes],
+              "pcost_rel_alone": [rels[i] for i in lanes],
+              "launches": launches, "nvidia_smi": nvidia_smi()})
+        launches_by_run[label] = launches
+        profiled = (run, solve_s)
+    return launches_by_run, profiled
 
 
 def phase_block_schur():
@@ -1994,7 +2071,8 @@ def phase_f32_kernels():
     """The f32 instances of the four kernels against their plain versions,
     bit for bit; the non-PD check; timings at config 3's shape, at configs
     4's and 5's (their f32-carry runs: B = 10,240, n = 10, k = 8 and 1;
-    B = 2048 and 65,536, n = 21, k = 1; 65,536 at n = 1), each named with
+    B = 2048 and 65,536, n = 21, k = 1; 65,536 at n = 1), above the
+    register tiles (F32_LARGE, beside the former route), each named with
     its schedule, and the single ones at n = 1 and 500 (config 2's in f32
     mode) and 128 (P1's)."""
     from socp_tpu_torch.ops import chol
@@ -2025,12 +2103,13 @@ def phase_f32_kernels():
                 chol.tri_pair_single(L, rhs), chol.tri_pair_single_plain(L, rhs),
                 f"tri_pair_single f32 n={n} k={k}"))
 
-    bad = f32_spd(rng, 64, 102, neg=True)
-    for f in (chol.chol_batched, chol.chol_batched_plain):
-        Lb = f(bad)
-        torch.cuda.synchronize()
-        check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
-              f"{f.__name__} f32: a non-PD input gave a finite factor")
+    for n in (102, 500):                     # the register tiles, the dataflow
+        bad = f32_spd(rng, 64, n, neg=True)
+        for f in (chol.chol_batched, chol.chol_batched_plain):
+            Lb = f(bad)
+            torch.cuda.synchronize()
+            check(bool((~torch.isfinite(Lb)).flatten(1).any(1).all()),
+                  f"{f.__name__} f32: a non-PD input at n={n} gave a finite factor")
     for n in (20, 128, 500):                 # one tile, then the dataflow
         bad = f32_spd(rng, 1, n, neg=True)[0]
         for f in (chol.chol_single, chol.chol_single_plain):
@@ -2052,6 +2131,11 @@ def phase_f32_kernels():
         for k in ks:
             by_shape["tri_pair_f32"][f"{at},k={k}"] = t[
                 "tri_pair_batched" if k == ks[0] else f"tri_pair_batched k={k}"]
+    for B, n in F32_LARGE:               # beside the former route
+        t = batched_timing(torch.float32, rng, B, n, former=True)
+        at = f"B={B},n={n}"
+        by_shape["chol_f32"][at] = t["chol_batched"]
+        by_shape["tri_pair_f32"][f"{at},k=1"] = t["tri_pair_batched"]
     single = single_timing(torch.float32, rng)
     timing["chol_f32"].update({f"single_{at}": t
                                for at, t in single["chol_single"].items()})
@@ -2839,7 +2923,9 @@ def main():
     for label, (run, run_s) in single_runs.items():
         phase_profile(run, run_s, label)
     sn_launches, _ = phase_single(native_dd=True)
-    lb_launches = phase_large_batch()
+    lb_launches, (lb_run, lb_solve_s) = phase_large_batch()
+    phase_profile(lb_run, lb_solve_s, "large_batch64")
+    del lb_run
     b_launches, b_run, b_solve_s = phase_block_schur()
     phase_profile(b_run, b_solve_s, "config4")
     a_launches, a_runs = phase_admm()
@@ -2893,7 +2979,7 @@ def main():
         by_path = {"main": launches[name], "main_native": n_launches[name],
                    **{c: v[name] for c, v in s_launches.items()},
                    **{c: v[name] for c, v in sn_launches.items()},
-                   "large_batch": lb_launches[name],
+                   **{run: v[name] for run, v in lb_launches.items()},
                    "block_schur": b_launches[name],
                    "admm": a_launches["b"][name],
                    "admm_chunked": a_launches["a"][name],

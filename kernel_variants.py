@@ -2,17 +2,25 @@
 """What bounds the batched kernels: time variants of their sources on one
 card, each built from this checkout's csrc/ with a few lines replaced.
 
-    python3 kernel_variants.py          # from the root of the repository
+    python3 kernel_variants.py [PREFIX ...]   # from the root of the repository
+
+With prefixes, only the variants whose names start with one of them run
+(`cross_`: where each batched kernel's schedule above the register tiles
+and the warp panels should start).
 
 Each variant is csrc/chol_batched.cu or csrc/tri_pair_batched.cu with the
-text substitutions of VARIANTS applied (a substitution whose text is not
-found fails the run: the sources changed).  They are built by nvcc with
+text substitutions of VARIANTS applied, to the source or to the headers it
+includes (a substitution whose text is not found fails the run: the
+sources changed).  They are built by nvcc with
 the package's flags into socp_tpu_torch/_build/variants/ (all at once),
 loaded with ctypes, run at B = 4096, n = 102, k = 1 (the register tiles
 and panels) or, for the small-order schedule's variants, at config 5's
 B = 65,536, n = 21, k = 1 or config 4's B = 10,240, n = 10 (k = 8), in
 f64 and f32 on inputs made from a numpy seed, and timed by device time
-(`device_ms` of chip_smoke.py: torch.profiler, median of 15).  A variant marked `exact`
+(`device_ms` of chip_smoke.py: torch.profiler, median of 15).  The `cross_`
+variants move where a schedule starts (the Cholesky's tile dataflow, the
+pair solve's block panels) and time one shape under each schedule; each
+row names the schedule its source chose at its shape.  A variant marked `exact`
 must stay bit-equal to the plain version; the knock-outs (the chain's
 square root, reciprocal and division or the update's arithmetic taken
 out) compute something else and only say how much of the time that part
@@ -43,9 +51,12 @@ NO_CHAIN = {"    const T d = sqrt_rn(p);\n    const T r = rcp_of(d);":
             "const T q = div_rn(own ? v : T(1), d, r);": "const T q = mul_rn(v, r);"}
 NO_UPDATE = {"          acc[s][a][b] = sub_rn(acc[s][a][b], mul_rn(ci[a], ck[b]));":
              "          acc[s][a][b] = ci[a];"}
-THREADS = {"constexpr int kThreads1 = 128, kSlots1 = 3;":
-           "constexpr int kThreads1 = {t}, kSlots1 = {s};",
-           "launch_k<T, kThreads1, kSlots1, 3>": "launch_k<T, kThreads1, kSlots1, {b}>"}
+THREADS = {"constexpr int kTileThreads = 128, kTileSlots = 3;":
+           "constexpr int kTileThreads = {t}, kTileSlots = {s};",
+           "static_assert(max_n(kTileThreads, kTileSlots) == kMaxN,":
+           "static_assert(max_n(kTileThreads, kTileSlots) >= 102,",
+           "launch_k<T, kTileThreads, kTileSlots, 3>":
+           "launch_k<T, kTileThreads, kTileSlots, {b}>"}
 # clock64() marks: a global buffer, read back through prof_read
 PROF_HEAD = {"namespace {\n": "namespace {\n__device__ unsigned long long g_prof[4096 * 4];\n",
              "}  // namespace": "}  // namespace\nextern \"C\" int prof_read(void* h) {\n"
@@ -106,7 +117,47 @@ TRI_SMALL_L_ONLY = {"for (int base = 0; base < units; base += per_pass) {":
 TRI_SMALL_UNROLL4 = {"#pragma unroll 2\n    for (int j = 0;": "#pragma unroll 4\n    for (int j = 0;",
                      "#pragma unroll 2\n    for (int j = n - 1;": "#pragma unroll 4\n    for (int j = n - 1;"}
 C5, C4, C4K = (65536, 21, 1), (10240, 10, 1), (10240, 10, 8)
-# name -> (source, substitutions, exact[, (B, n, k): config 3's by default])
+# where the schedules above the register tiles and the warp panels start:
+# the Cholesky's tile dataflow from n = 33 (it takes over from 109), or
+# not before n = `top` (176 in f64, 252 in f32), with the register-tile
+# schedule it replaced between (256 threads of 4 (f64) or 8 (f32) tiles:
+# schedule -3); the pair solve's block panels from 33 or never (from 257)
+DATAFLOW_EARLY = {"constexpr int kDataflowFrom = kMaxN + 1;":
+                  "constexpr int kDataflowFrom = 33;"}
+REG256 = {"constexpr int kMaxN = 108;": "constexpr int kMaxN = 256;",
+          "static_assert(max_n(kTileThreads, kTileSlots) == kMaxN,":
+          "static_assert(max_n(kTileThreads, kTileSlots) == 108,",
+          "constexpr int kDataflowFrom = kMaxN + 1;":
+          "constexpr int kDataflowFrom = {top} + 1;",
+          "  return launch_k<T, kTileThreads, kTileSlots, 3>(H, L, batch, n, s);":
+          "  if (n > 108) return launch_k<T, 256, sizeof(T) == 8 ? 4 : 8, 1>(H, L, batch, n, s);\n"
+          "  return launch_k<T, kTileThreads, kTileSlots, 3>(H, L, batch, n, s);",
+          "  return n >= kDataflowFrom ? -2 : -1;":
+          "  return n >= kDataflowFrom ? -2 : n > 108 ? -3 : -1;"}
+BLOCK_PANELS_EARLY = {"constexpr int kBlockPanelsFrom = 257;":
+                      "constexpr int kBlockPanelsFrom = 33;"}
+WARP_PANELS_ALWAYS = {"constexpr int kBlockPanelsFrom = 257;":
+                      "constexpr int kBlockPanelsFrom = 1 << 30;"}
+CROSS = {}
+for Bc, nc in ((64, 109), (64, 128), (64, 144), (64, 160), (64, 176),
+               (64, 240), (64, 252), (1024, 128), (1024, 176), (1024, 252),
+               (4096, 144)):
+    CROSS[f"cross_chol_n{nc}_B{Bc}"] = (CHOL, {}, True, (Bc, nc, 1))
+    for key, top in (("f64", 176), ("f32", 252)):
+        if nc <= top:
+            CROSS[f"cross_chol_reg256_n{nc}_B{Bc}_{key}"] = (
+                CHOL, {k: v.format(top=top) for k, v in REG256.items()}, True,
+                (Bc, nc, 1), (key,))
+CROSS["cross_chol_n102_B4096"] = (CHOL, {}, True, (4096, 102, 1))
+CROSS["cross_chol_dataflow_n102_B4096"] = (CHOL, DATAFLOW_EARLY, True,
+                                           (4096, 102, 1))
+for Bc, nc in ((64, 200), (64, 500), (1024, 200)):
+    CROSS[f"cross_tri_n{nc}_B{Bc}"] = (TRI, {}, True, (Bc, nc, 1))
+    CROSS[f"cross_tri_other_n{nc}_B{Bc}"] = (
+        TRI, BLOCK_PANELS_EARLY if nc < 257 else WARP_PANELS_ALWAYS, True,
+        (Bc, nc, 1))
+# name -> (source, substitutions, exact[, (B, n, k): config 3's by default[,
+# the dtypes it runs in: both by default]])
 VARIANTS = {
     "chol": (CHOL, {}, True),
     "chol_no_chain": (CHOL, NO_CHAIN, False),
@@ -139,38 +190,69 @@ VARIANTS = {
     "tri_small_8_warps": (TRI, SMALL_WARPS, True, C5),
     "tri_small_unroll4": (TRI, TRI_SMALL_UNROLL4, True, C5),
     "tri_small_n10_k8": (TRI, {}, True, C4K),
+    **CROSS,
+    # the tile dataflow at config 2's width: its walker, or walker and
+    # jobs, kept out of line (ptxas allocates their registers apart)
+    "tiles_n500": (CHOL, {}, True, (64, 500, 1)),
+    "tiles_walk_noinline_n500": (CHOL, {
+        "template <typename T>\n__device__ __forceinline__ void walk(":
+        "template <typename T>\n__device__ __noinline__ void walk("}, True,
+        (64, 500, 1)),
+    "tiles_noinline_n500": (CHOL, {
+        "template <typename T>\n__device__ __forceinline__ void walk(":
+        "template <typename T>\n__device__ __noinline__ void walk(",
+        "template <typename T>\n__device__ __forceinline__ void job(":
+        "template <typename T>\n__device__ __noinline__ void job("}, True,
+        (64, 500, 1)),
 }
 B, N = smoke.B_MAIN, smoke.N_MAIN + 2
 
 
-def build(out):
-    """Write and compile every variant at once; the loaded libraries."""
+def _texts(name):
+    """Variant `name`'s source and the shared headers, with its
+    substitutions applied wherever their text is (each must be somewhere)."""
     from socp_tpu_torch.ops import _build
 
-    os.makedirs(out, exist_ok=True)
-    for header in _build.CSRC.glob("*.cuh"):
-        (out / header.name).write_bytes(header.read_bytes())
-    procs = {}
-    for name, (source, subs, *_) in VARIANTS.items():
-        text = (_build.CSRC / f"{source}.cu").read_text()
-        for old, new in subs.items():
-            smoke.check(old in text, f"variant {name}: text not in {source}.cu:\n{old}")
-            text = text.replace(old, new)
-        (out / f"{name}.cu").write_text(text)
+    source, subs, *_ = VARIANTS[name]
+    files = {f"{source}.cu": (_build.CSRC / f"{source}.cu").read_text()}
+    files.update({h.name: h.read_text() for h in sorted(_build.CSRC.glob("*.cuh"))})
+    for old, new in subs.items():
+        smoke.check(any(old in t for t in files.values()),
+                    f"variant {name}: text not in {source}.cu or a header:\n{old}")
+        files = {f: t.replace(old, new) for f, t in files.items()}
+    return source, files
+
+
+def build(out, names):
+    """Write and compile the named variants at once (one build for each
+    distinct text, in a directory of its own); the loaded libraries."""
+    from socp_tpu_torch.ops import _build
+
+    procs, first, key_of = {}, {}, {}
+    for name in names:
+        source, files = _texts(name)
+        key = tuple(sorted(files.items()))
+        key_of[name] = key
+        if key in first:            # the same texts as an earlier variant
+            continue
+        first[key] = name
+        os.makedirs(out / name, exist_ok=True)
+        for f, t in files.items():
+            (out / name / f).write_text(t)
         procs[name] = subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(out / f"{name}.so"),
-             str(out / f"{name}.cu")],
+             str(out / name / f"{source}.cu")],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-    libs = {}
+    built = {}
     for name, proc in procs.items():
         log, _ = proc.communicate()
         smoke.check(proc.returncode == 0, f"variant {name} did not build:\n{log}")
-        libs[name] = (ctypes.CDLL(str(out / f"{name}.so")),
-                      smoke.ptxas_report(log))
-    return libs
+        built[name] = (ctypes.CDLL(str(out / f"{name}.so")),
+                       smoke.ptxas_report(log))
+    return {name: built[first[key_of[name]]] for name in names}
 
 
-def main():
+def main(prefixes=()):
     if not torch.cuda.is_available():
         sys.exit("kernel_variants: CUDA is not available")
     from socp_tpu_torch.ops import _build, chol
@@ -179,14 +261,18 @@ def main():
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0], flush=True)
-    libs = build(_build.BUILD_DIR / "variants")
+    names = [v for v in VARIANTS
+             if not prefixes or v.startswith(tuple(prefixes))]
+    libs = build(_build.BUILD_DIR / "variants", names)
     P, I = ctypes.c_void_p, ctypes.c_int
     stream = torch.cuda.current_stream().cuda_stream
     for dtype, key in ((torch.float64, "f64"), (torch.float32, "f32")):
         inputs = {}       # (B, n, k) -> H, its plain factor L, rhs, X
         for name, (lib, ptxas) in libs.items():
-            source, _, exact, *shape = VARIANTS[name]
-            Bv, Nv, Kv = shape[0] if shape else (B, N, 1)
+            source, _, exact, *rest = VARIANTS[name]
+            Bv, Nv, Kv = rest[0] if rest else (B, N, 1)
+            if key not in (rest[1] if len(rest) > 1 else ("f64", "f32")):
+                continue
             if (Bv, Nv, Kv) not in inputs:
                 rng = np.random.default_rng(smoke.SEED)
                 H = torch.as_tensor(
@@ -201,19 +287,28 @@ def main():
             fn.restype = I
             out = torch.empty_like(H if source == CHOL else rhs)
             if source == CHOL:
-                fn.argtypes = [P, P, I, I, P]
-                args = (H.data_ptr(), out.data_ptr(), Bv, Nv, stream)
+                fn.argtypes = [P, P, P, I, I, P]
+                lib.chol_batched_scratch_ints.argtypes = [I, I]
+                ints = lib.chol_batched_scratch_ints(Bv, Nv)
+                scratch = torch.empty(max(ints, 1), dtype=torch.int32,
+                                      device="cuda")
+                args = (H.data_ptr(), out.data_ptr(), scratch.data_ptr(), Bv,
+                        Nv, stream)
+                lib.chol_batched_schedule.argtypes = [I]
+                schedule = lib.chol_batched_schedule(Nv)
             else:
                 fn.argtypes = [P, P, P, I, I, I, P]
                 args = (L.data_ptr(), rhs.data_ptr(), out.data_ptr(), Bv, Nv, Kv,
                         stream)
+                lib.tri_pair_batched_schedule.argtypes = [I, I]
+                schedule = lib.tri_pair_batched_schedule(Nv, Kv)
             smoke.check(fn(*args) == 0, f"variant {name} {key}: launch failed")
             torch.cuda.synchronize()
             equal = torch.equal(out, L if source == CHOL else X)
             smoke.check(equal or not exact,
                         f"variant {name} {key}: not bit-equal to the plain version")
             row = {"variant": name, "dtype": key, "shape": [Bv, Nv, Kv],
-                   "bit_equal": equal,
+                   "schedule": schedule, "bit_equal": equal,
                    "kernel_ms": smoke.device_ms(lambda: fn(*args)),
                    "ptxas": {k: v for k, v in ptxas.items()
                              if ("double" in k) == (key == "f64")}}
@@ -230,4 +325,4 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -10,8 +10,8 @@ driver on the device, unpadding — the counterpart of `socp_tpu/api.py`.
 `solve` runs the driver on a batch of one, so its KKT factor and
 back-solves go through the single-instance kernels (`ops.chol.cholesky` /
 `tri_pair_solve` route a batch of one there); the batched entry points run
-the batched kernels (above their largest order, the single ones an
-instance at a time: ops/chol.py).
+the batched kernels, one launch a factor or solve at every order
+(ops/chol.py).
 
 KKT route: `SolverConfig(native_dd=True)` takes the reference's
 accelerator route, the structured assembly of kkt/structured.py

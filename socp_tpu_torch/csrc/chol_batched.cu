@@ -1,17 +1,19 @@
-// chol_batched.cu -- batched lower Cholesky factor in f64 or f32, one
-// instance per thread block, the trailing matrix in registers (up to n = 32,
-// one instance per warp or several, a row per lane).
+// chol_batched.cu -- batched lower Cholesky factor in f64 or f32, any order,
+// in one launch: several instances a warp up to n = 32, one instance per
+// thread block with the trailing matrix in registers up to n = 108, and
+// above the register tiles the 32 x 32 tile dataflow of csrc/chol_tiles.cuh
+// over the whole batch.
 //
 // chol_batched_f64 replaces socp_tpu/ops/pallas_chol.py:_dd_chol_batch_kernel
 // (entry point cholesky_dd_batched): the instance-tiled, right-looking dd32
-// Cholesky of the TPU's batched lockstep path.  The H100 has native FP64, so
-// it computes the same function -- the lower factor L of H = L L', zeros
-// above the diagonal -- in f64 instead of double-word f32, and drops the
-// TPU's masked lane reductions.  chol_batched_f32 replaces
-// pallas_chol.py:_f32_chol_kernel (entry point cholesky_f32, a one-instance
-// f32 kernel that jax.vmap batches): the same factor in f32, the factor of
-// the solver's mixed-precision mode (factor_dtype="float32") on the batched
-// path.
+// Cholesky of the TPU's batched lockstep path, which takes any order in one
+// pallas_call.  The H100 has native FP64, so it computes the same
+// function -- the lower factor L of H = L L', zeros above the diagonal --
+// in f64 instead of double-word f32, and drops the TPU's masked lane
+// reductions.  chol_batched_f32 replaces pallas_chol.py:_f32_chol_kernel
+// (entry point cholesky_f32, a one-instance f32 kernel that jax.vmap
+// batches): the same factor in f32, the factor of the solver's
+// mixed-precision mode (factor_dtype="float32") on the batched path.
 //
 // What bounds it on this card.  Per instance it must read H's lower
 // triangle and write the n x n factor, and it does n^3 / 3 multiplies and
@@ -51,8 +53,9 @@
 // in the diagonal tiles.  Registers set the blocks an SM (3 in f64 at
 // n = 102, 158 registers a thread).  Three schedules, chosen by n in
 // launch(): up to n = 32 the small-order one below; 128 threads with 3
-// tiles each up to n = 108 (the main path's n = 102); 256 threads with 4
-// (f64) or 8 (f32) tiles each above, up to n = 176 (f64) and 252 (f32).
+// tiles each up to n = 108 (config 3's n = 102); above, the tile dataflow,
+// which beat 256 threads of 4 (f64) or 8 (f32) register tiles at every
+// shape measured from n = 109 (B = 64 to 4096, both dtypes; PERF.md).
 //
 // The small-order schedule (n <= 32: config 4's blocks at n = 10, config
 // 5's H at n = 21 and its 1 x 1 Schur complement).  At such n the tiled
@@ -79,6 +82,25 @@
 // slower: the warps of an SM already overlap one's copies with another's
 // steps (PERF.md, kernel_variants.py).
 //
+// The tile dataflow (n above the register tiles: config 2's width, n = 500,
+// in a batch).  A block an instance leaves the card idle at B = 64 and runs
+// one chain of n steps, each a block barrier; the register tiles end where
+// a thread's registers do.  Here every instance gets a walker, one
+// block that runs its chain of 32 x 32 diagonal tiles (a factor and a
+// solve, a barrier a column), and its off-diagonal tiles are jobs that any
+// block takes: tickets from one global counter, dealt ticket-major over a
+// group of instances, so the group's walkers start together on as many SMs
+// and the jobs spread over the rest (chol_tiles.cuh, where the progress
+// argument is).  Each instance's flags and pivot roots live in a scratch
+// buffer the wrapper allocates (chol_batched_scratch_ints) and the entry
+// point zeroes on the stream before the kernel.  The tiles are
+// chol_single's, shared through chol_tiles.cuh, so a batch factors bit for
+// bit as B calls of chol_single.  What bounds it: at (64, 500) in f64 its
+// 192 MB (H's lower triangle in, L out) take 0.057 ms at 3.35 TB/s and its
+// 2.7 GFLOP 0.04 ms at 67 TFLOP/s; the walkers' chains (about 0.25 ms
+// each, chol_single's time at n = 500) run side by side, so the chain and
+// the tile updates' shared-memory traffic set the time (PERF.md).
+//
 // Agreement with the plain version (ops/chol.py).  Every entry (i, k) of L
 // sees the plain column loop's rounded operations in its order: acc -=
 // L[i][t] * L[k][t] for t = 0, 1, ..., k - 1, then acc / sqrt(pivot k).
@@ -93,22 +115,21 @@
 #include <cuda_runtime.h>
 
 #include "chol_column.cuh"
+#include "chol_tiles.cuh"
 #include "div_rn.cuh"
 #include "packed_copy.cuh"
 
 namespace {
 
 constexpr int kQ = 4;         // micro-tile edge
-constexpr int kMaxN = 256;    // the published column and pivots' length
 constexpr int kMaxDevices = 64;
 
-// The first schedule: up to 3 x 128 tiles (n <= 108); the second: up to
-// 256 x kSlots2 tiles.  (The small-order schedule, n <= kSmallMaxN, is
-// chol_small_kernel below.)
-constexpr int kThreads1 = 128, kSlots1 = 3;
-constexpr int kThreads2 = 256;
-template <typename T>
-constexpr int slots2() { return sizeof(T) == 8 ? 4 : 8; }
+// The register tiles: 3 x 128 of them, which hold n <= kMaxN (the
+// small-order schedule, n <= kSmallMaxN, is chol_small_kernel below); the
+// tile dataflow takes every larger n.
+constexpr int kTileThreads = 128, kTileSlots = 3;
+constexpr int kMaxN = 108;    // the published column and pivots' length
+constexpr int kDataflowFrom = kMaxN + 1;
 
 __host__ __device__ constexpr int tiles_of(int n) {
   return (n + kQ - 1) / kQ * ((n + kQ - 1) / kQ + 1) / 2;
@@ -304,12 +325,15 @@ constexpr size_t low_bytes(int n) {
   return static_cast<size_t>(n) * (n + 1) / 2 * sizeof(T);
 }
 
-// The largest n whose tiles kThreads threads of kSlots tiles hold.
+// The largest n (at most kMaxN) whose tiles kThreads threads of kSlots
+// tiles hold.
 constexpr int max_n(int threads, int slots) {
   int n = 0;
   while (n < kMaxN && tiles_of(n + 1) <= threads * slots) ++n;
   return n;
 }
+static_assert(max_n(kTileThreads, kTileSlots) == kMaxN,
+              "the register tiles hold up to kMaxN");
 
 template <typename T, int kThreads, int kSlots, int kMinBlocks>
 int launch_k(const T* H, T* L, int batch, int n, cudaStream_t s) {
@@ -444,39 +468,58 @@ int launch_small(const T* H, T* L, int batch, int n, cudaStream_t s) {
   }
 }
 
+// ---- the tile dataflow: n >= kDataflowFrom, the whole batch in one launch
+// (chol_tiles.cuh)
+
 template <typename T>
-int launch(const T* H, T* L, int batch, int n, void* stream) {
+__global__ void __launch_bounds__(chol_tiles::kThreads)
+chol_batched_tiles_kernel(const T* __restrict__ H, T* __restrict__ L,
+                          int* __restrict__ scratch, int batch, int n,
+                          int group) {
+  chol_tiles::run(H, L, scratch, batch, n, group);
+}
+
+template <typename T>
+int launch(const T* H, T* L, int* scratch, int batch, int n, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (n <= kSmallMaxN) return launch_small(H, L, batch, n, s);
-  const int tiles = tiles_of(n);
-  if (tiles <= kThreads1 * kSlots1) {
-    return launch_k<T, kThreads1, kSlots1, 3>(H, L, batch, n, s);
+  if (n >= kDataflowFrom) {
+    static int grid[chol_tiles::kMaxDevices] = {};   // per process and device
+    return chol_tiles::launch(chol_batched_tiles_kernel<T>, grid, H, L,
+                              scratch, batch, n, s);
   }
-  if (tiles <= kThreads2 * slots2<T>() && n <= kMaxN) {
-    return launch_k<T, kThreads2, slots2<T>(), 1>(H, L, batch, n, s);
-  }
-  return static_cast<int>(cudaErrorInvalidValue);
+  return launch_k<T, kTileThreads, kTileSlots, 3>(H, L, batch, n, s);
 }
 
 }  // namespace
 
-// H, L: (batch, n, n) row-major on the device; L may not alias H.  Returns
-// the CUDA error code of the launch (0 on success); cudaErrorInvalidValue
-// when n is above 176 (f64) or 252 (f32), where the register tiles end.
-extern "C" int chol_batched_f64(const double* H, double* L, int batch, int n,
-                                void* stream) {
-  return launch(H, L, batch, n, stream);
+// The ints of scratch memory chol_batched_f64 / _f32 take for a batch at
+// order n (8-byte aligned device memory; its contents need not be set): 0
+// below the tile dataflow, which alone takes scratch; -1 if the batch is
+// too large for the dataflow's int counters.
+extern "C" int chol_batched_scratch_ints(int batch, int n) {
+  return n >= kDataflowFrom ? chol_tiles::scratch_ints(batch, n) : 0;
 }
 
-extern "C" int chol_batched_f32(const float* H, float* L, int batch, int n,
-                                void* stream) {
-  return launch(H, L, batch, n, stream);
+// H, L: (batch, n, n) row-major on the device; L may not alias H.  scratch:
+// chol_batched_scratch_ints(batch, n) ints of device memory (null when
+// that is 0), which the call zeroes in part on the stream before its
+// kernel.  Returns the CUDA error code of the launch (0 on success).
+extern "C" int chol_batched_f64(const double* H, double* L, int* scratch,
+                                int batch, int n, void* stream) {
+  return launch(H, L, scratch, batch, n, stream);
+}
+
+extern "C" int chol_batched_f32(const float* H, float* L, int* scratch,
+                                int batch, int n, void* stream) {
+  return launch(H, L, scratch, batch, n, stream);
 }
 
 // The schedule launch() takes at order n (both dtypes): the instances a
-// warp holds in the small-order schedule (1 ... 32), or -1 for 128
-// threads with 3 tiles each, -2 for 256 threads.
+// warp holds in the small-order schedule (1 ... 32), or -1 for the
+// register tiles (128 threads with 3 tiles each), -2 for the tile
+// dataflow.
 extern "C" int chol_batched_schedule(int n) {
   if (n <= kSmallMaxN) return 32 / small_lanes(n);
-  return tiles_of(n) <= kThreads1 * kSlots1 ? -1 : -2;
+  return n >= kDataflowFrom ? -2 : -1;
 }

@@ -1,12 +1,15 @@
-// tri_pair_batched.cu -- batched (L L')^-1 B in f64 or f32: forward
-// substitution on L, then backward substitution on L' read from the same L,
-// one warp per instance and rhs column (up to n = 32, one warp per instance
-// or several, all their columns).
+// tri_pair_batched.cu -- batched (L L')^-1 B in f64 or f32, any order, in
+// one launch: forward substitution on L, then backward substitution on L'
+// read from the same L; one warp per instance and rhs column (up to n =
+// 32, one warp per instance or several, all their columns), and above
+// kBlockPanelsFrom a block for each instance and up to 4 columns
+// (csrc/tri_pair_panels.cuh).
 //
 // tri_pair_batched_f64 replaces
 // socp_tpu/ops/pallas_chol.py:_tri_pair_batch_kernel (entry point
 // tri_pair_solve_batched), the instance-tiled dd32 pair solve of the TPU's
-// batched lockstep path; it computes the same function in f64.
+// batched lockstep path, which takes any order in one pallas_call; it
+// computes the same function in f64.
 // tri_pair_batched_f32 replaces pallas_chol.py:_f32_tri_kernel (entry point
 // tri_solve_f32, a one-instance f32 kernel that jax.vmap batches): the same
 // forward-then-backward pair solve in f32, the back-solve of the solver's
@@ -65,6 +68,18 @@
 // quarter; the rest is the chain's 2 n steps, with 11 of 32 lanes idle at
 // n = 21 (PERF.md, kernel_variants.py).
 //
+// Above kBlockPanelsFrom (config 2's width, n = 500, in a batch).  A warp
+// an instance runs a chain of 2 n steps and copies in and works through
+// n^2 / 1024 blocks of L one after another, and at B = 64 keeps 16 SMs
+// busy.  There the design of tri_pair_single (tri_pair_panels.cuh) takes
+// over with a batch index: a block for each instance and up to 4 rhs
+// columns, its chain warp running each 32-row panel's steps while row
+// threads apply the panel to the rows beyond it, one barrier a panel.  So
+// a batch solves bit for bit as B calls of tri_pair_single.  PERF.md has
+// both schedules' times at (64, 200) and (64, 500).  The only order it
+// refuses is one whose rhs column does not fit shared memory
+// (tri_pair_single_max_n).
+//
 // Agreement with the plain version (ops/chol.py).  Every x_i sees the plain
 // loops' operations in their order: forward x_i -= L[i][j] * (x_j / L_jj)
 // for j = 0, 1, ..., i - 1, then x_i / L_ii; backward x_i -= L[j][i] *
@@ -79,6 +94,7 @@
 #include "chol_column.cuh"
 #include "div_rn.cuh"
 #include "packed_copy.cuh"
+#include "tri_pair_panels.cuh"
 
 namespace {
 
@@ -86,9 +102,10 @@ constexpr int kP = 32;          // panel and block width: one warp
 constexpr int kLd = kP + 1;     // a block row in shared memory, padded
 constexpr int kWarps = 4;       // instances (rhs columns) a block
 constexpr int kStages = 2;      // blocks of L in flight a warp
-constexpr int kMaxN = 256;
+constexpr int kBlockPanelsFrom = 257;  // the first n of a block an instance
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxDevices = 64;
+constexpr size_t kMaxSmem = 232448;    // a block's dynamic shared memory
 
 // A warp's shared memory, in entries: kStages blocks, the panel's
 // quotients, the rhs column (n rounded up to the panel width).
@@ -317,13 +334,30 @@ int launch_small(const T* L, const T* B, T* X, int batch, int n, int k,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- above kBlockPanelsFrom: a block for each instance and up to 4
+// columns (tri_pair_panels.cuh)
+
+template <typename T, int W>
+__global__ void __launch_bounds__(pair_panels::threads_of(W))
+tri_pair_batched_rows_kernel(const T* __restrict__ L, const T* __restrict__ B,
+                             T* __restrict__ X, int n, int k) {
+  pair_panels::run<T, W>(L, B, X, n, k);
+}
+
 template <typename T>
 int launch(const T* L, const T* B, T* X, int batch, int n, int k,
            void* stream) {
-  if (n <= kSmallMaxN) {
-    return launch_small(L, B, X, batch, n, k, static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n <= kSmallMaxN) return launch_small(L, B, X, batch, n, k, s);
+  if (n >= kBlockPanelsFrom) {
+    static bool set[2][pair_panels::kMaxDevices] = {};
+    return pair_panels::launch<T>(
+        tri_pair_batched_rows_kernel<T, 1>,
+        tri_pair_batched_rows_kernel<T, pair_panels::kCols>, set, L, B, X,
+        batch, n, k, s);
   }
-  if (n > kMaxN) return static_cast<int>(cudaErrorInvalidValue);
+  const size_t bytes = kWarps * warp_entries(n) * sizeof(T);
+  if (bytes > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // the attribute once per process and device: the largest allocation
   static bool attribute_set[kMaxDevices] = {};
   int dev = 0;
@@ -331,27 +365,33 @@ int launch(const T* L, const T* B, T* X, int batch, int n, int k,
   if (err != cudaSuccess) return static_cast<int>(err);
   if (dev >= kMaxDevices) return static_cast<int>(cudaErrorInvalidDevice);
   if (!attribute_set[dev]) {
-    err = cudaFuncSetAttribute(
-        tri_pair_batched_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(kWarps * warp_entries(kMaxN) * sizeof(T)));
+    err = cudaFuncSetAttribute(tri_pair_batched_kernel<T>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(kMaxSmem));
     if (err != cudaSuccess) return static_cast<int>(err);
     attribute_set[dev] = true;
   }
   const long long units = static_cast<long long>(batch) * k;
   const long long blocks = (units + kWarps - 1) / kWarps;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidValue);
+  if (blocks == 0) return 0;                  // nothing to solve
   tri_pair_batched_kernel<T><<<static_cast<unsigned>(blocks), kWarps * kP,
-                               kWarps * warp_entries(n) * sizeof(T),
-                               static_cast<cudaStream_t>(stream)>>>(
-      L, B, X, batch, n, k);
+                               bytes, s>>>(L, B, X, batch, n, k);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
+// The largest n the kernels take for entries of `itemsize` bytes: above
+// kBlockPanelsFrom one rhs column of n entries must fit the shared memory
+// the panels leave (tri_pair_single_max_n's limit).
+extern "C" int tri_pair_batched_max_n(int itemsize) {
+  return pair_panels::max_n(itemsize);
+}
+
 // L: (batch, n, n) lower factor; B, X: (batch, n, k); all row-major on the
 // device.  Returns the CUDA error code of the launch (0 on success);
-// cudaErrorInvalidValue when n is above 256.
+// cudaErrorInvalidValue when n is above tri_pair_batched_max_n.
 extern "C" int tri_pair_batched_f64(const double* L, const double* B,
                                     double* X, int batch, int n, int k,
                                     void* stream) {
@@ -364,8 +404,10 @@ extern "C" int tri_pair_batched_f32(const float* L, const float* B, float* X,
 }
 
 // The schedule launch() takes at order n with k columns (both dtypes): the
-// instances a warp holds in the small-order schedule (1 ... 32), or -1 for
-// a warp an instance and column over 32 x 32 blocks.
+// instances a warp holds in the small-order schedule (1 ... 32), -1 for a
+// warp an instance and column over 32 x 32 blocks, -2 for a block an
+// instance and up to 4 columns.
 extern "C" int tri_pair_batched_schedule(int n, int k) {
-  return n <= kSmallMaxN ? small_instances(n, k) : -1;
+  if (n <= kSmallMaxN) return small_instances(n, k);
+  return n >= kBlockPanelsFrom ? -2 : -1;
 }

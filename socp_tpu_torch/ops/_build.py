@@ -31,7 +31,7 @@ NVCC_FLAGS = (
 
 _P, _I = ctypes.c_void_p, ctypes.c_int
 _SIGNATURES = {
-    "chol_batched": (_P, _P, _I, _I, _P),
+    "chol_batched": (_P, _P, _P, _I, _I, _P),
     "tri_pair_batched": (_P, _P, _P, _I, _I, _I, _P),
     "chol_single": (_P, _P, _P, _I, _P),
     "tri_pair_single": (_P, _P, _P, _I, _I, _P),
@@ -54,7 +54,9 @@ KERNELS.update({
 QUERIES = {
     "chol_single_scratch_ints": ("chol_single", (_I,)),
     "tri_pair_single_max_n": ("tri_pair_single", (_I,)),
+    "chol_batched_scratch_ints": ("chol_batched", (_I, _I)),
     "chol_batched_schedule": ("chol_batched", (_I,)),
+    "tri_pair_batched_max_n": ("tri_pair_batched", (_I,)),
     "tri_pair_batched_schedule": ("tri_pair_batched", (_I, _I)),
 }
 # checks the card runs on the kernels' building blocks (csrc/div_rn.cu)

@@ -1,12 +1,13 @@
 """Cholesky and triangular-pair solve in f64 and f32: the port of the
 Pallas kernels of `socp_tpu/ops/pallas_chol.py` that the solver runs.
 
-  chol_batched(H)          lower L with L L' = H for a (B, n, n) batch,
-                           zeros above the diagonal (f64: port of
+  chol_batched(H)          lower L with L L' = H for a (B, n, n) batch, any
+                           n, zeros above the diagonal (f64: port of
                            `_dd_chol_batch_kernel`; f32: of `_f32_chol_kernel`
                            under jax.vmap)
   tri_pair_batched(L, B)   (L L')^-1 B, forward then backward substitution,
-                           for a (B, n, n) factor batch (f64: port of
+                           for a (B, n, n) factor batch, any n whose rhs
+                           column fits the kernel's shared memory (f64: port of
                            `_tri_pair_batch_kernel`; f32: of `_f32_tri_kernel`
                            under jax.vmap; both without the LT operand)
   chol_single(H)           the same for ONE (n, n) matrix, any n (f64: port
@@ -18,13 +19,9 @@ Pallas kernels of `socp_tpu/ops/pallas_chol.py` that the solver runs.
                            the routers, counterparts of the reference's
                            `cholesky_dd_v` / `tri_pair_solve_v`: a batch of
                            one instance goes to the single kernels, a larger
-                           batch to the batched ones.  On CUDA a batch whose
-                           order is above BATCHED_MAX_N (169 in f64, 240 in
-                           f32) goes to the single kernels one instance at a
-                           time, each launch counted as a single one: a
-                           route chosen by shape before any launch, never a
-                           fallback on failure.  Called directly, the
-                           batched kernels still refuse those orders.
+                           batch to the batched ones, at every order: one
+                           launch a call either way, chosen by shape before
+                           any launch, never a fallback on failure.
 
 Every wrapper takes float64 or float32 and launches the entry point of its
 input's dtype (`csrc/*.cu` export `*_f64` and `*_f32`); a factor and a rhs
@@ -46,12 +43,16 @@ for bit in both types.  The `*_launches` counters count kernel-wrapper
 launches (never plain calls), the f64 kernels' under the plain names and
 the f32 kernels' under `*_launches_f32`, so a run can show which kernels
 it went through.  Each batched kernel picks its schedule by n inside its
-source, before it launches: up to n = 32 a warp holds one instance or
-several (`batched_schedule` names the choice), above that the Cholesky's
-register tiles and the pair solve's 32 x 32 panels.  Every launch is one
-CUDA kernel; above n = 32 `chol_single`'s entry point also zeroes the tile
-flags in a small scratch buffer the wrapper allocates (csrc/chol_single.cu),
-one memset beside the kernel.
+source, before it launches (`batched_schedule` names the choice): up to
+n = 32 a warp holds one instance or several; above that the Cholesky's
+register tiles up to n = 108, then the 32 x 32 tile dataflow that
+`chol_single` runs (csrc/chol_tiles.cuh) over the whole batch; the pair
+solve's warp-per-instance panels, then above n = 256 `tri_pair_single`'s
+block of a chain warp and row threads for each instance
+(csrc/tri_pair_panels.cuh).  Every launch is one CUDA kernel; the tile
+dataflow's entry points (`chol_single` above n = 32, `chol_batched` above
+the register tiles) also zero its tickets and flags in a scratch buffer
+the wrapper allocates, one memset beside the kernel.
 """
 
 from __future__ import annotations
@@ -79,12 +80,6 @@ COUNTERS = {"chol_batched": "chol_launches",
 
 # dtype -> suffix of the C entry point
 _SUFFIX = {torch.float64: "f64", torch.float32: "f32"}
-
-# the largest order of a batched factor or pair solve, by dtype: what the
-# batched kernels took when one block held the matrix in shared memory
-# (csrc/chol_batched.cu's register tiles now hold up to 176 and 252; the
-# pair solve takes any k)
-BATCHED_MAX_N = {torch.float64: 169, torch.float32: 240}
 
 
 def chol_batched_plain(H: torch.Tensor) -> torch.Tensor:
@@ -149,15 +144,24 @@ def _check_pair(name: str, L: torch.Tensor, rhs: torch.Tensor):
         raise ValueError(f"{name}: L and rhs on different devices")
 
 
-def _order_check(name: str, n: int, dtype: torch.dtype):
-    if n > BATCHED_MAX_N[dtype]:
+def _max_n_check(name: str, n: int, t: torch.Tensor):
+    """The pair solves' one refusal: an order whose rhs column does not fit
+    the kernel's shared memory (csrc/tri_pair_panels.cuh)."""
+    max_n = _query(f"{name}_max_n", t.element_size())
+    if n > max_n:
         raise ValueError(
-            f"{name}: n={n} is above {BATCHED_MAX_N[dtype]} for {dtype}; a "
-            "batch of factors above n = 169 (f64) or 240 (f32) needs a blocked "
-            "batched design (ROADMAP.md, queue 1 item 14); the routers "
-            "cholesky / tri_pair_solve send such a batch to chol_single / "
-            "tri_pair_single an instance at a time"
-        )
+            f"{name}: n={n} is above {max_n} for {t.dtype}: the kernel keeps "
+            "one rhs column in shared memory")
+
+
+def _scratch(t: torch.Tensor, ints: int) -> torch.Tensor | None:
+    """The tile dataflow's scratch buffer (its tickets, flags and pivot
+    roots) of `ints` int32 on t's device, None for none; the entry point
+    zeroes what must start at zero on the stream before its kernel."""
+    if ints < 0:
+        raise ValueError(f"a tile dataflow of shape {tuple(t.shape)} needs "
+                         "more scratch than its int32 counters address")
+    return torch.empty(ints, dtype=torch.int32, device=t.device) if ints else None
 
 
 def _stream(t: torch.Tensor) -> int:
@@ -178,15 +182,17 @@ def batched_schedule(name: str, n: int, k: int = 1) -> str:
     "tri_pair_batched") launches at order n (and k rhs columns), as its
     source's launch() chooses it by n before any launch: "warp x G" for the
     small-order schedule (n <= 32, G instances a warp), else "tiles 128x3"
-    or "tiles 256" (chol_batched) or "panels" (tri_pair_batched).  Builds
-    the source on first use (a CUDA machine only)."""
+    (the register tiles) or "tiles dataflow" (chol_batched), "panels" (a
+    warp an instance and column) or "block panels" (a block an instance:
+    tri_pair_batched).  Builds the source on first use (a CUDA machine
+    only)."""
     code = (_query("chol_batched_schedule", n) if name == "chol_batched"
             else _query("tri_pair_batched_schedule", n, k))
     if code > 0:
         return f"warp x {code}"
     if name == "chol_batched":
-        return "tiles 128x3" if code == -1 else "tiles 256"
-    return "panels"
+        return "tiles 128x3" if code == -1 else "tiles dataflow"
+    return "panels" if code == -1 else "block panels"
 
 
 def _launch(name: str, t: torch.Tensor, *args):
@@ -210,11 +216,12 @@ def chol_batched(H: torch.Tensor) -> torch.Tensor:
         raise ValueError(f"chol_batched: not square: {tuple(H.shape)}")
     if H.device.type == "cpu":
         return chol_batched_plain(H)
-    _order_check("chol_batched", n, H.dtype)
     L = torch.empty_like(H)
     if L.numel() == 0:
         return L
-    _launch("chol_batched", H, H.data_ptr(), L.data_ptr(), B, n)
+    scratch = _scratch(H, _query("chol_batched_scratch_ints", B, n))
+    _launch("chol_batched", H, H.data_ptr(), L.data_ptr(),
+            0 if scratch is None else scratch.data_ptr(), B, n)
     return L
 
 
@@ -230,7 +237,7 @@ def tri_pair_batched(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     _check_pair("tri_pair_batched", L, rhs)
     if L.device.type == "cpu":
         return tri_pair_batched_plain(L, rhs)
-    _order_check("tri_pair_batched", n, L.dtype)
+    _max_n_check("tri_pair_batched", n, L)
     X = torch.empty_like(rhs)
     if X.numel() == 0:
         return X
@@ -250,11 +257,7 @@ def chol_single(H: torch.Tensor) -> torch.Tensor:
     L = torch.empty_like(H)
     if n == 0:
         return L
-    # the tile flags' scratch (none for one tile); the entry point zeroes
-    # what must start at zero on the stream before its kernel
-    ints = _query("chol_single_scratch_ints", n)
-    scratch = (torch.empty(ints, dtype=torch.int32, device=H.device)
-               if ints else None)
+    scratch = _scratch(H, _query("chol_single_scratch_ints", n))
     _launch("chol_single", H, H.data_ptr(), L.data_ptr(),
             0 if scratch is None else scratch.data_ptr(), n)
     return L
@@ -271,11 +274,7 @@ def tri_pair_single(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     _check_pair("tri_pair_single", L, rhs)
     if L.device.type == "cpu":
         return tri_pair_single_plain(L, rhs)
-    max_n = _query("tri_pair_single_max_n", L.element_size())
-    if n > max_n:
-        raise ValueError(
-            f"tri_pair_single: n={n} is above {max_n} for {L.dtype}: the "
-            "kernel keeps one rhs column in shared memory")
+    _max_n_check("tri_pair_single", n, L)
     X = torch.empty_like(rhs)
     if X.numel() == 0:
         return X
@@ -284,34 +283,18 @@ def tri_pair_single(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return X
 
 
-def _one_at_a_time(t: torch.Tensor) -> bool:
-    """A CUDA batch of more than one instance whose order is above what the
-    batched kernels take (BATCHED_MAX_N): the routers send it through the
-    single-instance kernels, one instance at a time."""
-    return (t.ndim == 3 and t.shape[0] > 1 and t.device.type == "cuda"
-            and t.dtype in BATCHED_MAX_N
-            and t.shape[1] > BATCHED_MAX_N[t.dtype])
-
-
 def cholesky(H: torch.Tensor) -> torch.Tensor:
     """Lower factors of a (B, n, n) batch: B == 1 through `chol_single`,
-    larger batches through `chol_batched`, or on CUDA above its largest
-    order through `chol_single` an instance at a time (`_one_at_a_time`)."""
+    larger batches through `chol_batched`, at every order."""
     if H.ndim == 3 and H.shape[0] == 1:
         return chol_single(H[0])[None]
-    if _one_at_a_time(H):
-        return torch.stack([chol_single(h) for h in H.contiguous()])
     return chol_batched(H)
 
 
 def tri_pair_solve(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     """(L L')^-1 rhs for a (B, n, n) factor batch and (B, n, k) rhs: B == 1
     through `tri_pair_single`, larger batches through `tri_pair_batched`,
-    or on CUDA above its largest order through `tri_pair_single` an
-    instance at a time."""
+    at every order."""
     if L.ndim == 3 and L.shape[0] == 1 and rhs.ndim == 3:
         return tri_pair_single(L[0], rhs[0])[None]
-    if _one_at_a_time(L) and rhs.ndim == 3 and rhs.shape[0] == L.shape[0]:
-        return torch.stack([tri_pair_single(a, b) for a, b in
-                            zip(L.contiguous(), rhs.contiguous())])
     return tri_pair_batched(L, rhs)

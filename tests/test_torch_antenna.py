@@ -10,6 +10,7 @@ assembly, which the test sees."""
 
 import numpy as np
 import pytest
+import torch
 
 import socp_tpu
 import socp_tpu_torch
@@ -20,6 +21,16 @@ from socp_tpu_torch.cones.layout import make_layout
 from socp_tpu_torch.kkt import structured
 from socp_tpu_torch.models.antenna import antenna_design, sidelobe_level
 from tests._host_memory import release_host_memory  # noqa: F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def test_antenna_instance_is_the_references():

@@ -9,7 +9,11 @@ dd for the reference with `ddm.from_f64` and back with `astype_f64`.
 Tolerances are the reference's own for these kernels
 (tests/test_pallas.py:90-129): Cholesky rtol 1e-9 / atol 1e-11, pair solve
 rtol 1e-10 / atol 1e-12.  The CUDA kernels themselves are held to these
-plain versions on the card by chip_smoke.py (bit for bit).
+plain versions on the card by chip_smoke.py (bit for bit); here each of
+their schedules is emulated step for step (the tile dataflow with its
+tickets and flags) and held to the plain loops bit for bit.  The slice,
+solve_batch of three portfolios at n = 180, is held to the reference's
+solve_batch.
 """
 
 import jax
@@ -18,10 +22,24 @@ import numpy as np
 import pytest
 import torch
 
+import socp_tpu
+import socp_tpu_torch
+from socp_tpu.models.portfolio import portfolio
 from socp_tpu.ops import dd as ddm
 from socp_tpu.ops.pallas_chol import cholesky_dd_batched, tri_pair_solve_batched
 from socp_tpu_torch.ops import chol
 from tests._host_memory import release_host_memory  # noqa: F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 B = 8
 
@@ -35,7 +53,7 @@ def _spd(rng, n, kappa=1e8, neg=False):
     return 0.5 * (H + np.swapaxes(H, 1, 2))
 
 
-@pytest.mark.parametrize("n", [24, 37])
+@pytest.mark.parametrize("n", [24, 37, 176])
 def test_chol_plain_matches_pallas(n):
     H = _spd(np.random.default_rng(n), n)
     ref = jax.jit(lambda h: cholesky_dd_batched(h, tile=4))(
@@ -48,7 +66,7 @@ def test_chol_plain_matches_pallas(n):
                                rtol=1e-9, atol=1e-11)
 
 
-@pytest.mark.parametrize("n,k", [(24, 1), (24, 3), (37, 1), (37, 3)])
+@pytest.mark.parametrize("n,k", [(24, 1), (24, 3), (37, 1), (37, 3), (176, 1)])
 def test_tri_pair_plain_matches_pallas(n, k):
     rng = np.random.default_rng(100 + n + k)
     L = chol.chol_batched_plain(torch.as_tensor(_spd(rng, n)))
@@ -121,8 +139,8 @@ def _microtile_order(H: torch.Tensor) -> torch.Tensor:
     minus its own update with column j, its entries are updated with
     column j and divided by the pivot's square root -- then the rest of the
     trailing lower triangle takes column j, and entry (j + 2, j + 2) is
-    published as the next pivot.  The kernel's 4 x 4 register tiles and its
-    two schedules above n = 32 change only which thread does which entry."""
+    published as the next pivot.  The kernel's 4 x 4 register tiles (n = 33
+    ... 108) change only which thread does which entry."""
     n = H.shape[-1]
     M = torch.tril(H)                      # the kernel reads only this
     L = torch.zeros_like(H)
@@ -245,12 +263,187 @@ def _warp_pair_order(L: torch.Tensor, rhs: torch.Tensor) -> torch.Tensor:
     return X
 
 
-# n across the micro-tile (4) and panel (32) edges, the Cholesky's second
-# schedule (above n = 108) and config 3's n = 102, up to the largest order
-# the wrappers take in f64 (the microtile and panel schedules, which the
-# card runs above n = 32); then the small-order schedules (n <= 32) across
+def _tiles_dataflow_order(H: torch.Tensor, grid: int, seed: int = 0,
+                          nb: int = 32) -> torch.Tensor:
+    """chol_batched's tile dataflow above the register tiles
+    (csrc/chol_tiles.cuh), its protocol as well as its arithmetic: `grid`
+    blocks are coroutines that take tickets from one counter, dealt
+    ticket-major over groups of min(B, grid // 2) instances; ticket 0 of an
+    instance is its walker, the rest its jobs; every wait on a tile's flag
+    yields, and the blocks run in a random order (`seed`).  Each tile
+    applies the updates, factors and solves of the kernel in its order:
+    panel by panel, one column t at a time.  Raises if every block waits
+    (a deadlock) and returns the factors otherwise."""
+    Bn, n, _ = H.shape
+    nt = -(-n // nb)
+    N = nt * nb
+    per = nt * (nt + 1) // 2 - 2 if nt >= 3 else 1
+    group = Bn if Bn < grid // 2 else max(1, grid // 2)
+    Hp = torch.zeros((Bn, N, N), dtype=H.dtype)
+    Hp[:, :n, :n] = torch.tril(H)             # the kernel reads only this
+    L = torch.zeros_like(Hp)
+    flags = torch.zeros((Bn, nt, nt), dtype=torch.bool)
+    roots = torch.zeros((Bn, N), dtype=H.dtype)
+    counter = [0]
+
+    def tile(X, b, i, c):
+        return X[b, i * nb:(i + 1) * nb, c * nb:(c + 1) * nb]
+
+    def wait(b, i, j):
+        while not flags[b, i, j]:
+            yield
+
+    def update(A, Si, Sc):
+        for t in range(nb):
+            A -= Si[:, t, None] * Sc[None, :, t]
+
+    def factor(A, cols):                      # the walker's column loop
+        r = torch.ones(nb, dtype=A.dtype)
+        for t in range(cols):
+            r[t] = torch.sqrt(A[t, t])
+            A[t:, t] = A[t:, t] / r[t]
+            A[t + 1:, t + 1:] -= A[t + 1:, t, None] * A[None, t + 1:, t]
+        return r
+
+    def solve(A, D, r):                       # a tile's rows against D
+        for t in range(nb):
+            A[:, t] = A[:, t] / r[t]
+            A[:, t + 1:] -= A[:, t, None] * D[None, t + 1:, t]
+
+    def panels(b, A, I, C, p1):
+        for P in range(p1):
+            yield from wait(b, I, P)
+            yield from wait(b, C, P)
+            update(A, tile(L, b, I, P), tile(L, b, C, P))
+
+    def walk(b):
+        have_a, ahead, Sq = False, None, None
+        for K in range(nt):
+            if K < 2:
+                D = tile(Hp, b, K, K).clone()
+            elif not have_a:
+                yield from wait(b, K - 2, K)
+                D = tile(L, b, K, K).clone()
+            else:
+                D = ahead
+            if K > 0:
+                update(D, Sq, Sq)
+            r = factor(D, min(nb, n - K * nb))
+            tile(L, b, K, K)[:] = torch.tril(D)
+            if K + 1 == nt:
+                return
+            roots[b, K * nb:(K + 1) * nb] = r
+            flags[b, K, K] = True
+            if K > 0:
+                yield from wait(b, K, K + 1)
+            have_a = K > 0 and bool(flags[b, K - 1, K + 1])
+            Sp = tile(Hp if K == 0 else L, b, K + 1, K).clone()
+            if have_a:
+                ahead = tile(L, b, K + 1, K + 1).clone()
+            solve(Sp, D, r)
+            tile(L, b, K + 1, K)[:] = Sp
+            flags[b, K + 1, K] = True
+            Sq = Sp
+
+    def job(b, k):
+        for C in range(nt):
+            full = max(0, nt - C - 2)
+            if k < full:
+                I, kind = C + 2 + k, 0
+                break
+            k -= full
+            if C + 2 < nt:
+                if k < 2:
+                    I, kind = C + 2, 1 + k
+                    break
+                k -= 2
+        if kind == 1:                         # tile (C + 2, C + 1)
+            A = tile(Hp, b, I, C + 1).clone()
+            yield from panels(b, A, I, C + 1, C + 1)
+            tile(L, b, I, C + 1)[:] = A
+            flags[b, C + 1, I] = True
+        elif kind == 2:                       # tile (C + 2, C + 2)
+            A = tile(Hp, b, I, I).clone()
+            yield from panels(b, A, I, I, C + 1)
+            tile(L, b, I, I)[:] = torch.tril(A)
+            flags[b, C, I] = True
+        else:                                 # tile (I, C), I >= C + 2
+            A = tile(Hp, b, I, C).clone()
+            yield from panels(b, A, I, C, C)
+            yield from wait(b, C, C)
+            solve(A, tile(L, b, C, C), roots[b, C * nb:(C + 1) * nb])
+            tile(L, b, I, C)[:] = A
+            flags[b, I, C] = True
+
+    def block():
+        while counter[0] < Bn * per:
+            ticket = counter[0]
+            counter[0] += 1
+            g, r = divmod(ticket, group * per)
+            size = min(group, Bn - g * group)
+            k, inst = divmod(r, size)
+            if k == 0:
+                yield from walk(g * group + inst)
+            else:
+                yield from job(g * group + inst, k - 1)
+
+    rng = np.random.default_rng(seed)
+    blocks = [block() for _ in range(grid)]
+    stalled = 0          # rounds in which no ticket was taken and no flag set
+    while blocks:
+        state = (counter[0], int(flags.sum()))
+        blocks = [blocks[i] for i in rng.permutation(len(blocks))
+                  if next(blocks[i], StopIteration) is not StopIteration]
+        stalled = stalled + 1 if (counter[0], int(flags.sum())) == state else 0
+        # a block passes at most 2 nt waits without setting a flag
+        assert stalled <= 2 * nt + 2, "every block waits: the dataflow deadlocked"
+    return L[:, :n, :n]
+
+
+def _block_pair_order(L: torch.Tensor, rhs: torch.Tensor, nb: int = 32) -> torch.Tensor:
+    """tri_pair_batched above its warp-per-instance panels
+    (csrc/tri_pair_panels.cuh: a block for each instance and up to 4 rhs
+    columns, which share nothing): per 32-row panel, the chain warp first
+    applies the last panel's quotients to the panel's rows (the lookahead),
+    then runs the panel's steps; the row threads apply the last panel's
+    quotients to the rows beyond this panel, one panel late.  Forward top
+    down, every x divided by its pivot, backward bottom up, every x divided
+    again."""
+    n = L.shape[-1]
+    X = rhs.clone()
+    diag = torch.diagonal(L, dim1=1, dim2=2)[..., None]       # (B, n, 1)
+
+    def coef(j, rows, forward):                 # L[i][j] or L[j][i], rows i
+        return L[:, rows, j, None] if forward else L[:, j, rows, None]
+
+    for forward in (True, False):
+        starts = range(0, n, nb)
+        last = []                               # the last panel's (j, q)
+        for a in (starts if forward else reversed(starts)):
+            e = min(n, a + nb)
+            rows = slice(a, e)
+            beyond = slice(e, n) if forward else slice(0, a)
+            for j, q in last:                   # the chain's lookahead
+                X[:, rows] -= coef(j, rows, forward) * q[:, None]
+            for j, q in last:                   # the row threads
+                X[:, beyond] -= coef(j, beyond, forward) * q[:, None]
+            last = []
+            for j in (range(a, e) if forward else range(e - 1, a - 1, -1)):
+                q = X[:, j] / diag[:, j]
+                below = slice(j + 1, e) if forward else slice(a, j)
+                X[:, below] -= coef(j, below, forward) * q[:, None]
+                last.append((j, q))
+        X = X / diag
+    return X
+
+
+# n across the micro-tile (4) and panel (32) edges and config 3's n = 102,
+# up to n = 169 (the microtile and panel schedules, which the card runs
+# above n = 32, the microtile one up to n = 108); then the small-order schedules (n <= 32) across
 # their lane buckets (half a warp an instance up to n = 16), config 4's
-# n = 10 (k = 8) and config 5's n = 21 and 1
+# n = 10 (k = 8) and config 5's n = 21 and 1; then the schedules above the
+# register tiles and the warp panels (the card runs them from n = 109 and
+# 257; their order depends on the tile count, 3 and 4 here, not on n)
 BATCHED_SCHEDULE_CASES = (
     [("chol", d, n, 0) for d in ("f64", "f32")
      for n in (1, 2, 3, 4, 5, 31, 32, 33, 65, 102, 108, 109, 169)]
@@ -259,7 +452,10 @@ BATCHED_SCHEDULE_CASES = (
     + [("warp_chol", d, n, 0) for d in ("f64", "f32")
        for n in (1, 2, 8, 10, 16, 17, 21, 31, 32)]
     + [("warp_pair", d, n, k) for d in ("f64", "f32")
-       for n in (1, 2, 8, 10, 16, 17, 21, 31, 32) for k in (1, 3, 8)])
+       for n in (1, 2, 8, 10, 16, 17, 21, 31, 32) for k in (1, 3, 8)]
+    + [("dataflow", d, n, 0) for d in ("f64", "f32") for n in (65, 97)]
+    + [("block_pair", d, n, k) for d in ("f64", "f32") for n in (65, 97)
+       for k in (1, 5)])
 
 
 @pytest.mark.parametrize("schedule,dtype,n,k", BATCHED_SCHEDULE_CASES)
@@ -272,10 +468,92 @@ def test_batched_kernel_schedule_is_the_plain_order(schedule, dtype, n, k):
     if schedule.endswith("pair"):
         L = chol.chol_batched_plain(H)
         rhs = torch.as_tensor(rng.standard_normal((3, n, k)), dtype=H.dtype)
-        order = _warp_pair_order if schedule == "warp_pair" else _batched_pair_order
+        order = {"pair": _batched_pair_order, "warp_pair": _warp_pair_order,
+                 "block_pair": _block_pair_order}[schedule]
         got, want = order(L, rhs), chol.tri_pair_batched_plain(L, rhs)
+    elif schedule == "dataflow":
+        # grid 2: a group of one instance, walked after another's; grid 8:
+        # all three walkers at once
+        want = chol.chol_batched_plain(H)
+        for grid in (2, 8):
+            assert torch.equal(_tiles_dataflow_order(H, grid, seed=grid), want)
+        got = _tiles_dataflow_order(H, 4, seed=n)
     else:
         order = _warp_row_order if schedule == "warp_chol" else _microtile_order
         got, want = order(H), chol.chol_batched_plain(H)
     assert bool(torch.isfinite(want).all())
     assert torch.equal(got, want)
+
+
+def test_solve_batch_of_portfolios_above_the_register_tiles():
+    """The slice at a CPU size: solve_batch of B = 3 portfolio(s, n=180,
+    k=8), s = 0, 1, 2 (H of order 180, above the register tiles: the card
+    factors it with the tile dataflow and solves with the warp panels), on
+    the CPU against socp_tpu.solve_batch: the same status and
+    iterations lane for lane (ROADMAP.md queue 3 lets iteration counts
+    differ; on this batch they agree), every lane OPTIMAL, pcost within
+    1e-8 relative."""
+    probs = [portfolio(s, n=180, k=8)[0] for s in range(3)]
+    data = {f: np.stack([getattr(p, f) for p in probs])
+            for f in ("c", "G", "h", "A", "b")}
+    c, G, h = data.pop("c"), data.pop("G"), data.pop("h")
+    ref = socp_tpu.solve_batch(c, G, h, probs[0].dims, **data)
+    out = socp_tpu_torch.solve_batch(c, G, h, probs[0].dims, **data,
+                                     device="cpu")
+    iters = [(r.iterations, o.iterations) for r, o in zip(ref, out)]
+    for r, o in zip(ref, out):
+        assert o.status == int(r.status) == socp_tpu_torch.Status.OPTIMAL, iters
+        assert o.iterations == r.iterations, iters
+        assert abs(o.pcost - r.pcost) <= 1e-8 * max(1.0, abs(r.pcost)), iters
+
+
+@pytest.mark.parametrize("dtype,n,Bn", [
+    ("f64", 177, 2), ("f64", 177, 3), ("f64", 257, 2), ("f64", 257, 3),
+    ("f32", 253, 2), ("f32", 253, 3), ("f32", 257, 2), ("f32", 257, 3)])
+def test_routers_send_every_order_to_the_batched_wrappers_once(
+        dtype, n, Bn, monkeypatch):
+    """Above the orders the batched kernels once refused (f64 169, f32
+    240; the pair solves' 256), the routers make one batched call each for
+    the whole batch, never a call per instance, and give the bits of the
+    plain loops and of B single calls."""
+    calls = []
+    for name in ("chol_single", "chol_batched", "tri_pair_single",
+                 "tri_pair_batched"):
+        fn = getattr(chol, name)
+
+        def spy(*args, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*args)
+
+        monkeypatch.setattr(chol, name, spy)
+    rng = np.random.default_rng(n + Bn)
+    H = torch.as_tensor(_spd(rng, n, kappa=1e8 if dtype == "f64" else 1e4)[:Bn],
+                        dtype=torch.float64 if dtype == "f64" else torch.float32)
+    rhs = torch.as_tensor(rng.standard_normal((Bn, n, 1)), dtype=H.dtype)
+    L = chol.cholesky(H)
+    X = chol.tri_pair_solve(L, rhs)
+    assert calls == ["chol_batched", "tri_pair_batched"]
+    assert torch.equal(L, chol.chol_batched_plain(H))
+    assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
+    assert torch.equal(L, torch.stack([chol.chol_single_plain(h) for h in H]))
+    assert torch.equal(X, torch.stack([chol.tri_pair_single_plain(l, r)
+                                       for l, r in zip(L, rhs)]))
+    assert bool(torch.isfinite(X).all())
+
+
+@pytest.mark.parametrize("ints", [-1, 0, 7])
+def test_tile_dataflow_scratch_is_sized_by_its_query(ints):
+    """The scratch buffer the wrappers hand the tile dataflow: int32 of the
+    size the source's query gives, none for none, and a refusal where the
+    query says its counters cannot address the shape (a negative size)."""
+    H = torch.zeros(2, 3, 3, dtype=torch.float64)
+    if ints < 0:
+        with pytest.raises(ValueError, match="more scratch"):
+            chol._scratch(H, ints)
+        return
+    s = chol._scratch(H, ints)
+    if ints == 0:
+        assert s is None
+    else:
+        assert s.dtype == torch.int32 and s.shape == (ints,)
+        assert s.device == H.device

@@ -28,6 +28,17 @@ from socp_tpu_torch.parallel.runtime import init_distributed
 from tests import _dist_ranks
 from tests._host_memory import release_host_memory  # noqa: F401
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 # x[r] is rank r's tensor; the rings reduce its first p columns in the
 # given chunks: 12 in 3 is equal, 6 in 4 and 12 in 5 are numpy's
 # array_split sizes (2, 2, 1, 1 and 3, 3, 2, 2, 2)

@@ -47,7 +47,7 @@ def _spd(seed, B, n, kappa=1e8, neg=False):
 
 
 # (B, n): config 3's shapes, both sides of the micro-tile (4) and panel (32)
-# edges, the Cholesky's second schedule (above n = 108), the largest n,
+# edges, the tile dataflow (above n = 108), n = 169,
 # config 4's blocks (K = 10,240, nb = 10), a chunk of config 5's
 # scenarios (2048, nv = 21), all of them (65,536, nv = 21) and their 1 x 1
 # Schur complements, and n = 16 and 17 either side of the small-order
@@ -90,11 +90,13 @@ def _batched_inputs(dtype, B, n, card, seed=None):
             torch.as_tensor(rhs, dtype=dtype, device=card))
 
 
-@pytest.mark.parametrize("n", [102, 10, 21])
+@pytest.mark.parametrize("n", [102, 10, 21, 200, 500])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_batched_kernels_back_to_back_calls_give_the_same_bits(card, dtype, n):
     """Calls queued on one stream with no sync between them, at config 3's
-    n and at the small-order schedule's n = 10 and 21."""
+    n, at the small-order schedule's n = 10 and 21, and above the register
+    tiles (the tile dataflow's flags are per call, so no call reads
+    another's)."""
     H, rhs = _batched_inputs(dtype, 256, n, card)
     Ls = [chol.chol_batched(H) for _ in range(3)]
     Xs = [chol.tri_pair_batched(L, rhs) for L in Ls]
@@ -105,14 +107,16 @@ def test_batched_kernels_back_to_back_calls_give_the_same_bits(card, dtype, n):
     assert torch.equal(Xs[0], chol.tri_pair_batched_plain(Ls[0], rhs))
 
 
-@pytest.mark.parametrize("n", [102, 10, 21])
+@pytest.mark.parametrize("n", [102, 10, 21, 500])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_batched_kernels_replay_in_a_cuda_graph(card, dtype, n):
     """chol_batched then tri_pair_batched at B = 256 (n = 102, and the
-    small-order schedule's 10 and 21) captured by torch.cuda.graph,
-    replayed on the captured inputs and on new ones written into them:
-    bit-equal to the plain versions."""
-    H, rhs = _batched_inputs(dtype, 256, n, card)
+    small-order schedule's 10 and 21; B = 64 at n = 500, the tile dataflow,
+    whose scratch memset is a stream operation, and the block panels)
+    captured by torch.cuda.graph, replayed on the captured inputs and on
+    new ones written into them: bit-equal to the plain versions."""
+    B = 64 if n == 500 else 256
+    H, rhs = _batched_inputs(dtype, B, n, card)
     side = torch.cuda.Stream()
     side.wait_stream(torch.cuda.current_stream())
     with torch.cuda.stream(side):                  # warm-up, as torch asks
@@ -125,7 +129,7 @@ def test_batched_kernels_replay_in_a_cuda_graph(card, dtype, n):
         X = chol.tri_pair_batched(L, rhs)
     for seed in (None, 11):
         if seed is not None:
-            H2, rhs2 = _batched_inputs(dtype, 256, n, card, seed=seed)
+            H2, rhs2 = _batched_inputs(dtype, B, n, card, seed=seed)
             H.copy_(H2)
             rhs.copy_(rhs2)
         graph.replay()
@@ -134,12 +138,13 @@ def test_batched_kernels_replay_in_a_cuda_graph(card, dtype, n):
         assert torch.equal(X, chol.tri_pair_batched_plain(L, rhs))
 
 
-@pytest.mark.parametrize("n", [102, 10, 21])
+@pytest.mark.parametrize("n", [102, 10, 21, 500])
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_non_pd_gives_non_finite_factor(card, dtype, n):
     """Every instance of a batch whose smallest eigenvalue is negative gets
     a non-finite factor, and the call returns (n = 10 and 21 in the
-    small-order schedule)."""
+    small-order schedule; 500 in the tile dataflow, where no tile may wait
+    forever on a NaN pivot's flag)."""
     H = _spd(7, 16, n, neg=True) if dtype == torch.float64 else _spd32(7, 16, n, neg=True)
     L = chol.chol_batched(torch.as_tensor(H, dtype=dtype, device=card))
     torch.cuda.synchronize()
@@ -149,37 +154,56 @@ def test_non_pd_gives_non_finite_factor(card, dtype, n):
 def test_batched_schedules_are_chosen_by_n(card):
     """The sources' launch() choices: a warp holds 32 / W instances of
     the Cholesky up to n = 32 (W the power of two at or above n), and the
-    pair solve's G = max(1, (32 // n) // k); the register tiles and panels
-    above."""
+    pair solve's G = max(1, (32 // n) // k); the register tiles and warp
+    panels above, then the tile dataflow from n = 109 and the block panels
+    from n = 257, in both dtypes."""
     want_chol = {1: "warp x 32", 2: "warp x 16", 8: "warp x 4",
                  10: "warp x 2", 16: "warp x 2", 17: "warp x 1",
                  21: "warp x 1", 32: "warp x 1", 33: "tiles 128x3",
-                 108: "tiles 128x3", 109: "tiles 256"}
+                 108: "tiles 128x3", 109: "tiles dataflow",
+                 500: "tiles dataflow"}
     assert {n: chol.batched_schedule("chol_batched", n)
             for n in want_chol} == want_chol
     want_pair = {(1, 1): "warp x 32", (1, 8): "warp x 4", (2, 3): "warp x 5",
                  (10, 1): "warp x 3", (10, 8): "warp x 1", (21, 1): "warp x 1",
-                 (32, 3): "warp x 1", (33, 1): "panels"}
+                 (32, 3): "warp x 1", (33, 1): "panels", (256, 1): "panels",
+                 (257, 1): "block panels", (500, 5): "block panels"}
     assert {nk: chol.batched_schedule("tri_pair_batched", *nk)
             for nk in want_pair} == want_pair
 
 
 def test_kernels_refuse_what_they_cannot_hold(card):
-    with pytest.raises(ValueError, match="blocked batched design.*queue 1 item 14"):
-        chol.chol_batched(torch.eye(170, dtype=torch.float64, device=card)[None])
-    # an empty factor launches nothing
+    """The batched kernels take every order in one launch; the pair solve
+    refuses, before any launch, an order whose rhs column does not fit its
+    shared memory (tri_pair_batched_max_n, as tri_pair_single's).  An empty
+    factor launches nothing."""
     before = chol.chol_launches
     assert chol.chol_batched(torch.zeros(4, 0, 0, dtype=torch.float64,
                                          device=card)).shape == (4, 0, 0)
     assert chol.chol_launches == before
+    H = 2 * torch.eye(600, dtype=torch.float64,
+                      device=card).expand(2, 600, 600).contiguous()
+    L = chol.chol_batched(H)
+    assert chol.chol_launches == before + 1
+    assert torch.equal(L, chol.chol_batched_plain(H))
+    max_n = chol._query("tri_pair_batched_max_n", 8)
+    assert max_n == chol._query("tri_pair_single_max_n", 8)
+    big = torch.empty(2, max_n + 1, max_n + 1, dtype=torch.float64, device=card)
+    before = chol.tri_pair_launches
+    with pytest.raises(ValueError, match="one rhs column in shared memory"):
+        chol.tri_pair_batched(big, torch.ones(2, max_n + 1, 1,
+                                              dtype=torch.float64, device=card))
+    assert chol.tri_pair_launches == before
 
 
 @pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
 def test_routers_send_large_batched_orders_to_the_single_kernels(card, dtype):
-    """B = 2 at n = 200 (f64) / 250 (f32), above what the batched kernels
-    take: the routers factor and solve an instance at a time through the
-    single kernels, bit-equal to two single calls; no batched launch."""
-    n = 200 if dtype == torch.float64 else 250
+    """B = 2 at n = 200 (f64) / 260 (f32), above the orders the batched
+    kernels took before: the routers send the batch to the batched kernels
+    (the tile dataflow, and the warp panels at 200 or the block panels at
+    260), one launch each and no single launch, bit-equal to two calls of
+    the single kernels."""
+    n = 200 if dtype == torch.float64 else 260
     suffix = "" if dtype == torch.float64 else "_f32"
     H = _spd(n, 2, n) if dtype == torch.float64 else _spd32(n, 2, n)
     H = torch.as_tensor(H, dtype=dtype, device=card)
@@ -192,10 +216,44 @@ def test_routers_send_large_batched_orders_to_the_single_kernels(card, dtype):
     L = chol.cholesky(H)
     X = chol.tri_pair_solve(L, rhs)
     delta = [getattr(chol, c) - b for c, b in zip(names, before)]
-    assert delta == [0, 0, 2, 2]
+    assert delta == [1, 1, 0, 0]
     assert torch.equal(L, torch.stack([chol.chol_single(h) for h in H]))
     assert torch.equal(X, torch.stack([chol.tri_pair_single(a, b)
                                        for a, b in zip(L, rhs)]))
+
+
+# above the orders the batched kernels took before (169 in f64, 240 in
+# f32): either side of the register tiles' old edges (176, 252) and of the
+# warp panels' (256), and config 2's n = 500
+LARGE_NS = [170, 177, 200, 253, 500]
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+@pytest.mark.parametrize("n", LARGE_NS)
+@pytest.mark.parametrize("B", [2, 64])
+def test_large_orders_in_one_launch_equal_plain_and_single(card, B, n, dtype):
+    """chol_batched (the tile dataflow) and tri_pair_batched (k = 1 and 5:
+    the warp panels up to n = 256, the block panels above): one launch
+    each, bit-equal to the plain versions and to B calls of the single
+    kernels."""
+    H, _ = _batched_inputs(dtype, B, n, card)
+    rhs = torch.as_tensor(np.random.default_rng(n).standard_normal((B, n, 5)),
+                          dtype=dtype, device=card)
+    suffix = "" if dtype == torch.float64 else "_f32"
+    before = [getattr(chol, f"chol_launches{suffix}"),
+              getattr(chol, f"tri_pair_launches{suffix}")]
+    L = chol.chol_batched(H)
+    X1 = chol.tri_pair_batched(L, rhs[..., :1].contiguous())
+    X5 = chol.tri_pair_batched(L, rhs)
+    assert [getattr(chol, f"chol_launches{suffix}"),
+            getattr(chol, f"tri_pair_launches{suffix}")] == [before[0] + 1,
+                                                             before[1] + 2]
+    assert torch.equal(L, chol.chol_batched_plain(H))
+    assert torch.equal(X1, chol.tri_pair_batched_plain(L, rhs[..., :1]))
+    assert torch.equal(X5, chol.tri_pair_batched_plain(L, rhs))
+    assert torch.equal(L, torch.stack([chol.chol_single(h) for h in H]))
+    assert torch.equal(X5, torch.stack([chol.tri_pair_single(a, b)
+                                        for a, b in zip(L, rhs)]))
 
 
 def test_card_block_solve_matches_reference(card):
@@ -587,8 +645,13 @@ def test_mixed_dtypes_and_oversized_f32_batches_raise(card):
         chol.tri_pair_single(L64, torch.ones(4, 1, device=card))
     with pytest.raises(TypeError, match="float64.*float32"):
         chol.tri_pair_batched(L64[None], torch.ones(1, 4, 1, device=card))
-    with pytest.raises(ValueError, match="blocked batched design"):
-        chol.chol_batched(torch.eye(241, device=card)[None])
+    # f32 above the pair solve's shared memory: refused before any launch
+    n = chol._query("tri_pair_batched_max_n", 4) + 1
+    before = chol.tri_pair_launches_f32
+    with pytest.raises(ValueError, match="one rhs column in shared memory"):
+        chol.tri_pair_batched(torch.empty(2, n, n, device=card),
+                              torch.ones(2, n, 1, device=card))
+    assert chol.tri_pair_launches_f32 == before
 
 
 def test_card_f32factor_solve_matches_reference(card):

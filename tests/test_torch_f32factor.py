@@ -51,6 +51,17 @@ from socp_tpu_torch.ops import chol
 from socp_tpu_torch.problem import ConeDims
 from tests._host_memory import release_host_memory  # noqa: F401
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 F32 = dict(factor_dtype="float32")
 STRICT, FEAS_INACC, GAP_INACC, PCOST_REL = 1e-8, 1e-4, 5e-5, 5e-5
 

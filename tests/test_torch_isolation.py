@@ -25,6 +25,17 @@ from socp_tpu_torch.parallel.hugecone import prepare_huge, solve_huge
 from socp_tpu_torch.parallel.schur import random_block_problem, solve_block
 from tests._host_memory import release_host_memory  # noqa: F401
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 REPO = Path(__file__).resolve().parent.parent
 
 

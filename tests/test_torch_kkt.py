@@ -21,6 +21,17 @@ from socp_tpu_torch.kkt import dense as tdense
 from socp_tpu_torch.problem import ConeDims
 from tests._host_memory import release_host_memory  # noqa: F401
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 B, N = 4, 8
 DIMS = (3, (1, 4, 9))
 TL = make_layout(ConeDims(*DIMS))

@@ -30,6 +30,17 @@ from jax.experimental import pallas as pl
 from socp_tpu_torch.ops import chol, probes
 from tests._host_memory import release_host_memory  # noqa: F401
 
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 SCRIPTS = Path(__file__).resolve().parent.parent / "scripts"
 
 

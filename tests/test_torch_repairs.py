@@ -23,6 +23,16 @@ from socp_tpu_torch.ops import chol
 from tests._host_memory import release_host_memory  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def test_native_dd_overrides_factor_dtype(monkeypatch):
     """portfolio(0, n=64, k=8): native_dd with factor_dtype="float32" is the
     native_dd solve (before the repair it took the f32 factor and ended

@@ -10,6 +10,7 @@ torch than in XLA, so the port is held to tolerances, not bits."""
 
 import numpy as np
 import pytest
+import torch
 
 from socp_tpu import SolverConfig as RefConfig
 from socp_tpu.parallel.mesh import block_mesh
@@ -22,6 +23,17 @@ from socp_tpu_torch.parallel.schur import (BlockSocpProblem,
                                            random_block_problem, solve_block)
 from socp_tpu_torch.problem import ConeDims
 from tests._host_memory import release_host_memory  # noqa: F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
 
 C4_DIMS = dict(nb=10, p=8)          # config 4's block: l = 4, qs = (6,)
 

@@ -39,6 +39,16 @@ from socp_tpu_torch.ops import chol
 from tests._host_memory import release_host_memory  # noqa: F401
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
 def _spd(rng, n, kappa=1e8):
     Q, _ = np.linalg.qr(rng.normal(size=(n, n)))
     ev = np.logspace(-np.log10(kappa), 0, n)

@@ -10,6 +10,7 @@ import copy
 
 import numpy as np
 import pytest
+import torch
 
 import socp_tpu
 import socp_tpu_torch
@@ -19,6 +20,16 @@ from socp_tpu.models.robust_ls import robust_ls_batch
 from socp_tpu_torch import SolverConfig
 from socp_tpu_torch.carry import from_reference_warm
 from tests._host_memory import release_host_memory  # noqa: F401
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_thread():
+    """On these shapes the port's CPU path is eager-op overhead, and
+    torch's intra-op threads only contend with the other test workers."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
 
 
 def _robust_ls():
